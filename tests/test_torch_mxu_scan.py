@@ -1,0 +1,179 @@
+"""Port of the exact top-k engine (hashgan_tpu_torch/ops/mxu_scan.py)
+against the JAX reference: the scan's full keys and subgroup minima, the
+rescan keys and mxu_topk's rankings are EXACTLY those of the Pallas kernels
+run in interpret mode, and of the numpy oracle. The port's kernels run as
+their plain PyTorch versions here (CPU tensors)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hashgan_tpu.ops.groupmin import to_grouped_layout
+from hashgan_tpu.ops.mxu_scan import _rescan_winner_columns as rescan_jax
+from hashgan_tpu.ops.mxu_scan import _twolevel_topk_min as twolevel_jax
+from hashgan_tpu.ops.mxu_scan import build_key_base
+from hashgan_tpu.ops.mxu_scan import fused_rescan_keys as fused_jax
+from hashgan_tpu.ops.mxu_scan import mxu_fullkey_scan as fullkey_jax
+from hashgan_tpu.ops.mxu_scan import mxu_topk as mxu_topk_jax
+from hashgan_tpu.ops.mxu_scan import to_group_major as group_major_jax
+from hashgan_tpu.ops.mxu_scan import unpack_to_pm1 as unpack_pm1_jax
+from hashgan_tpu.ops.ref_numpy import hamming_distance_np, pack_codes_np
+from hashgan_tpu_torch.index.gallery import build_gallery_from_packed_device
+from hashgan_tpu_torch.ops import mxu_scan as port
+from hashgan_tpu_torch.ops.groupmin import INT32_MAX
+
+
+def _pm1(rng, n, bits, p=0.5):
+    return np.where(rng.uniform(size=(n, bits)) < p, -1.0, 1.0).astype(
+        np.float32)
+
+
+def _layouts(codes, groups=8, col_multiple=16):
+    """Packed codes -> (uint32 packed, numpy grouped (W, L, C), numpy
+    group-major rows (C, L*W)), built by the JAX package's layout functions."""
+    packed = pack_codes_np(codes)
+    gg = to_grouped_layout(packed, groups=groups, col_multiple=col_multiple)
+    bg = group_major_jax(packed, groups=groups, col_multiple=col_multiple)
+    return packed, gg, bg.reshape(bg.shape[0], -1)
+
+
+def _t(a):
+    """uint32 numpy -> int32 torch (same bits, no copy)."""
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
+
+
+def _u32(t):
+    return t.numpy().view(np.uint32)
+
+
+# (bits, n, queries, groups): W = 1, 2 (48-bit padding), 4; larger L; and a
+# gallery whose tail columns hold only padding (n < C).
+SHAPES = [(32, 700, 9, 8), (48, 1200, 5, 8), (128, 500, 7, 16),
+          (64, 10, 3, 8)]
+
+
+@pytest.mark.parametrize("bits,n,q,groups", SHAPES)
+def test_fullkey_scan_matches_jax_exactly(bits, n, q, groups):
+    rng = np.random.default_rng(bits + n)
+    packed, gg, _ = _layouts(_pm1(rng, n, bits), groups=groups)
+    pq = pack_codes_np(_pm1(rng, q, bits))
+    w, L, c = gg.shape
+    stride = L * c + 1
+    for valid_n in (n, L * c):  # with and without padding items
+        want_full, want_sub = fullkey_jax(
+            unpack_pm1_jax(jnp.asarray(pq)), jnp.asarray(gg),
+            build_key_base(L, c, 32 * w, valid_n), stride=stride, c_total=c,
+            query_tile=8, col_block=16, sub_g=16, interpret=True)
+        full, sub = port.mxu_fullkey_scan(_t(pq), _t(gg), valid_n, stride)
+        np.testing.assert_array_equal(full.numpy(), np.asarray(want_full))
+        np.testing.assert_array_equal(sub.numpy(), np.asarray(want_sub))
+        if valid_n < c:  # columns past valid_n hold only padding
+            assert (full.numpy()[:, valid_n:] == INT32_MAX).all()
+
+
+@pytest.mark.parametrize("bits,n,q,groups", SHAPES)
+def test_fused_rescan_matches_jax_fused_and_unfused(bits, n, q, groups):
+    rng = np.random.default_rng(bits * 3 + n)
+    _, gg, bgf = _layouts(_pm1(rng, n, bits), groups=groups)
+    pq = pack_codes_np(_pm1(rng, q, bits))
+    w, L, c = gg.shape
+    stride = L * c + 1
+    m = min(12, c)
+    cols = rng.integers(0, c, size=(q, m), dtype=np.int32)
+    cols[:, 0] = c - 1  # the last column: padding-heavy or all padding
+    got = port.fused_rescan_keys(_t(pq), _t(bgf), torch.from_numpy(cols),
+                                 stride, n).numpy()
+    args = (jnp.asarray(pq), jnp.asarray(bgf), jnp.asarray(cols), L, c, w,
+            stride, n)
+    np.testing.assert_array_equal(got, np.asarray(rescan_jax(*args)))
+    np.testing.assert_array_equal(
+        got, np.asarray(fused_jax(*args, query_tile=4, interpret=True)))
+    idx = np.arange(L)[None, None, :] * c + cols[:, :, None]
+    assert ((got.reshape(q, m, L) == INT32_MAX) == (idx >= n)).all()
+
+
+def _oracle(pq, packed, k):
+    d = hamming_distance_np(pq, packed)
+    order = np.argsort(d, axis=1, kind="stable")[:, :k]
+    return np.take_along_axis(d, order, axis=1), order
+
+
+@pytest.mark.parametrize(
+    "bits,n,q,k,p,groups,cm",
+    [
+        (32, 700, 9, 20, 0.5, 8, 16),
+        (48, 1200, 5, 64, 0.5, 8, 16),     # 48-bit padding columns
+        (64, 900, 6, 50, None, 8, 16),      # adversarial: all codes equal
+        (32, 37, 3, 64, 0.5, 8, 16),        # k > n: padding sentinels
+        (64, 150, 4, 100, 0.5, 8, 16),      # k > C = 32 columns: m < kk
+        (32, 8192, 4, 100, 0.05, 8, 128),   # C = 1024: two-level selection
+    ],
+)
+def test_mxu_topk_matches_jax_and_oracle(bits, n, q, k, p, groups, cm):
+    rng = np.random.default_rng(bits + n + k)
+    if p is None:
+        codes = np.tile(_pm1(rng, 1, bits), (n, 1))
+        queries = np.tile(codes[:1], (q, 1))
+    else:
+        codes, queries = _pm1(rng, n, bits, p), _pm1(rng, q, bits)
+    packed, gg, bgf = _layouts(codes, groups=groups, col_multiple=cm)
+    pq = pack_codes_np(queries)
+    d, i = port.mxu_topk(_t(pq), _t(gg), _t(bgf), valid_n=n, k=k)
+    d, i = d.numpy(), i.numpy()
+    dj, ij = mxu_topk_jax(jnp.asarray(pq), jnp.asarray(gg), jnp.asarray(bgf),
+                          valid_n=n, k=k, query_tile=8, col_block=16,
+                          interpret=True)
+    np.testing.assert_array_equal(d, np.asarray(dj))
+    np.testing.assert_array_equal(i, np.asarray(ij))
+    kk = min(k, n)
+    od, oi = _oracle(pq, packed, kk)
+    np.testing.assert_array_equal(i[:, :kk], oi)
+    np.testing.assert_array_equal(d[:, :kk], od)
+    w, L, c = gg.shape
+    assert (i[:, kk:] == L * c).all() and (d[:, kk:] == 32 * w + 1).all()
+
+
+@pytest.mark.parametrize("m,kk", [(96, 100), (256, 256), (1600, 7),
+                                  (4096, 100), (520, 33), (12800, 100)])
+def test_twolevel_topk_min_matches_jax(m, kk):
+    rng = np.random.default_rng(m * 7 + kk)
+    kk = min(kk, m)
+    keys = np.stack([rng.permutation(3 * m)[:m] for _ in range(4)]).astype(
+        np.int32)
+    vals, pos = port._twolevel_topk_min(torch.from_numpy(keys), kk)
+    vj, pj = twolevel_jax(jnp.asarray(keys), kk)
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(vj))
+    np.testing.assert_array_equal(pos.numpy(), np.asarray(pj))
+    negv, ref_pos = jax.lax.top_k(-jnp.asarray(keys), kk)
+    np.testing.assert_array_equal(pos.numpy(), np.asarray(ref_pos))
+
+
+def test_layout_helpers_match_jax():
+    rng = np.random.default_rng(1)
+    packed = rng.integers(0, 2**32, (100, 2), dtype=np.uint32)
+    bg = port.to_group_major(_t(packed), groups=8, col_multiple=16)
+    np.testing.assert_array_equal(
+        _u32(bg), group_major_jax(packed, groups=8, col_multiple=16))
+    pm1 = port.unpack_to_pm1(_t(packed), dtype=torch.float32).numpy()
+    np.testing.assert_array_equal(
+        pm1, np.asarray(unpack_pm1_jax(jnp.asarray(packed), jnp.float32)))
+
+
+def test_key_space_bound_and_unsupported_modes():
+    assert port.check_key_space(128, 128 * 8192) == 128 * 8192 + 1
+    with pytest.raises(ValueError, match="overflow"):
+        port.check_key_space(128, 128 * 131072)
+    # mxu_topk is exact only; its one caller, PackedGallery.topk, refuses
+    # the reference's other modes and engines.
+    gal = build_gallery_from_packed_device(
+        torch.zeros((5, 1), dtype=torch.int32), np.zeros((5, 1)), 32,
+        groups=8, col_multiple=16)
+    z = torch.zeros((1, 1), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="approx"):
+        gal.topk(z, k=3, mode="approx")
+    with pytest.raises(NotImplementedError, match="large-k"):
+        gal.topk(z, k=300)
+    with pytest.raises(NotImplementedError, match="repair"):
+        gal.topk(z, k=3, repair=2)
