@@ -5,16 +5,22 @@ same system on an NVIDIA H100. It imports ``torch`` and never ``jax``,
 ``flax`` or ``optax``, and mirrors the reference's layout so each module's
 counterpart is easy to find:
 
-- ``ops/``     sign->bitpack and the exact top-k engine; each hand-written
-               CUDA kernel (``csrc/*.cu``) sits beside its plain PyTorch
-               version, which runs for tensors on the CPU.
+- ``ops/``     sign->bitpack, Hamming distances and the exact top-k
+               engines; each hand-written CUDA kernel (``csrc/*.cu``) sits
+               beside its plain PyTorch version, which runs for tensors on
+               the CPU.
 - ``models/``  the SmallCNN hash encoder and the Flax->torch weight converter.
+- ``losses/``, ``train/``  the WML pairwise loss, the encoder's optimiser
+               and train step, and the stage-II ``Experiment``.
+- ``eval/``    MAP@R, P@H<=r, tie-aware histogram MAP and the numpy oracle.
 - ``index/``   the packed gallery, the query engine / serving pipeline and
                the HTTP server.
-- ``configs``, ``data/``  the config1 / config5 presets, preprocessing and
-               the synthetic image splits.
+- ``configs``, ``data/``, ``utils/``  the config1 / config5 presets, the
+               synthetic splits, batching, preprocessing, checkpoints and
+               metrics logging.
 
-This first slice covers the serving path; see ROADMAP.md for what is left.
+It covers the serving path and stage-II training and evaluation without
+the GAN; see ROADMAP.md for what is left.
 """
 
 __version__ = "0.1.0"

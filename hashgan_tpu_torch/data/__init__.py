@@ -1,1 +1,1 @@
-"""Data of the port: preprocessing and synthetic image splits."""
+"""Data of the port: synthetic image splits, batching and preprocessing."""

@@ -40,6 +40,20 @@ class QueryEngine:
         self._encode = (make_encode_fn(encoder, cfg) if encoder is not None
                         else None)
 
+    @classmethod
+    def from_artifacts(cls, cfg, workdir: str, gallery_path: str,
+                       device: Optional[torch.device | str] = None,
+                       ) -> "QueryEngine":
+        """The encoder restored from ``workdir``'s latest checkpoint and the
+        gallery saved at ``gallery_path``, on ``device`` (default: the first
+        CUDA device)."""
+        from hashgan_tpu_torch.train.loop import Experiment
+
+        exp = Experiment(cfg, workdir=workdir, device=device)
+        exp.restore_checkpoint()
+        gallery = PackedGallery.load(gallery_path, device=exp.device)
+        return cls(exp.encoder, gallery, cfg=cfg)
+
     def encode(self, images_u8) -> torch.Tensor:
         if self._encode is None:
             raise ValueError(

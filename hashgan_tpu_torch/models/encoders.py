@@ -8,9 +8,11 @@ average pooling. Parameters carry over from a Flax tree with
 ``models/convert.py::flax_to_torch``.
 
 ``dtype`` is the compute dtype of the backbone (the presets use bfloat16,
-``configs/config.py:108``). The numerics follow Flax's at that dtype:
-convolutions and the ``fc`` layer run in ``dtype``, with their parameters
-rounded to it (Flax rounds its float32 parameters per op, to the same
+``configs/config.py:108``). Every parameter is stored in float32, as Flax
+stores them (``param_dtype``), so an optimiser updates float32 weights and
+small steps do not round away. The numerics follow Flax's at that dtype:
+convolutions and the ``fc`` layer run in ``dtype``, with their weights and
+biases rounded to it inside ``forward`` (Flax rounds per op, to the same
 values); GroupNorm normalises in float32 with float32 scale and bias and
 casts its output to ``dtype``; the hash head always runs in float32, as the
 reference's ``HashHead`` does.
@@ -66,10 +68,9 @@ class SmallCNNEncoder(nn.Module):
     @torch.no_grad()
     def init_params(self, generator: Optional[torch.Generator] = None) -> None:
         """Flax's initialisers: truncated lecun-normal kernels, zero biases,
-        unit GroupNorm scales, N(0, 0.01) hash layer. Draws on the CPU from
-        ``generator`` (seeded by the caller), then casts the convolutions
-        and ``fc`` to ``dtype``; call before moving the module to another
-        device."""
+        unit GroupNorm scales, N(0, 0.01) hash layer, all float32. Draws on
+        the CPU from ``generator`` (seeded by the caller); call before
+        moving the module to another device."""
         for name, m in self.named_modules():
             if isinstance(m, (nn.Conv2d, nn.Linear)):
                 if name == "hash.hash_fc":
@@ -83,21 +84,22 @@ class SmallCNNEncoder(nn.Module):
             elif isinstance(m, nn.GroupNorm):
                 nn.init.ones_(m.weight)
                 nn.init.zeros_(m.bias)
-        for name, m in self.named_children():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):  # not the hash head
-                m.to(self.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) mean-subtracted inputs -> (B, bits) float32 codes."""
-        h = (x.to(self.dtype) / 127.5).permute(0, 3, 1, 2)
+        dt = self.dtype
+        h = (x.to(dt) / 127.5).permute(0, 3, 1, 2)
         for i in range(3):
             for half in "ab":
-                h = getattr(self, f"conv{i}{half}")(h)
-                h = getattr(self, f"norm{i}{half}")(h.float()).to(self.dtype)
+                conv = getattr(self, f"conv{i}{half}")
+                h = F.conv2d(h, conv.weight.to(dt), conv.bias.to(dt),
+                             padding=1)
+                h = getattr(self, f"norm{i}{half}")(h.float()).to(dt)
                 h = F.relu(h)
             h = F.avg_pool2d(h, 2, 2)
-        h = F.relu(self.fc(h.mean(dim=(2, 3))))
-        return self.hash(h)
+        h = F.linear(h.mean(dim=(2, 3)), self.fc.weight.to(dt),
+                     self.fc.bias.to(dt))
+        return self.hash(F.relu(h))
 
 
 def build_encoder(arch: str, bits: int, dtype: torch.dtype = torch.float32,

@@ -1,6 +1,7 @@
 """Build and bind the hand-written CUDA kernels under ``csrc/``.
 
-At first use, nvcc compiles every ``csrc/*.cu`` for ``sm_90a`` into one
+At first use, nvcc compiles every ``csrc/*.cu`` for ``sm_90a``, one nvcc
+process per source, all started together, and links the objects into one
 shared library with a plain C interface, which ctypes loads (no PyTorch
 headers, so a build takes seconds, not minutes). The library is cached in
 ``csrc/build/`` (git-ignored) under a hash of the sources and flags, so an
@@ -31,7 +32,7 @@ CSRC_DIR = os.path.join(
 BUILD_DIR = os.path.join(CSRC_DIR, "build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _PTR = ctypes.c_void_p
@@ -46,6 +47,7 @@ SIGNATURES: Dict[str, list] = {
                          _INT, _PTR],
     "fused_rescan": [_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
                      _INT, _INT, _PTR],
+    "hamming": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _I64, _PTR],
 }
 
 
@@ -88,17 +90,42 @@ class KernelLibrary:
 
     def _compile(self, out: str) -> None:
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{out}.tmp{os.getpid()}"
-        cu = [p for p in self.sources() if p.endswith(".cu")]
+        tag = f"tmp{os.getpid()}"
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-            capture_output=True, text=True, timeout=600,
-        )
-        self.build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{self.build_log}")
-        os.replace(tmp, out)
+        jobs = []
+        for src in (p for p in self.sources() if p.endswith(".cu")):
+            obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+            jobs.append((obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        objs = [obj for obj, _ in jobs]
+        try:
+            for obj, proc in jobs:
+                logs.append(proc.communicate(timeout=600)[0])
+                if proc.returncode != 0:
+                    failed.append(obj)
+            if not failed:
+                link = subprocess.run(
+                    [nvcc, "-shared", "-Xcompiler", "-fPIC", "-o",
+                     f"{out}.{tag}", *objs],
+                    capture_output=True, text=True, timeout=600)
+                logs.append(link.stdout + link.stderr)
+                if link.returncode != 0:
+                    failed.append(out)
+        finally:
+            for _, proc in jobs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            for obj in objs:
+                if os.path.exists(obj):
+                    os.remove(obj)
+        self.build_log = "".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n{self.build_log}")
+        os.replace(f"{out}.{tag}", out)
         self.build_seconds = time.perf_counter() - t0
 
     def load(self) -> ctypes.CDLL:

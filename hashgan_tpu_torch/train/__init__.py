@@ -1,1 +1,2 @@
-"""Encoding (the training steps come with the stage-II slice)."""
+"""Stage-II training: the encoder's state and step, encoding, and the
+``Experiment`` loop."""

@@ -1,1 +1,2 @@
-"""Device selection, numeric settings and gallery artifacts."""
+"""Device selection, numeric settings, metrics logging, checkpoints and
+gallery artifacts."""

@@ -15,6 +15,11 @@ from hashgan_tpu_torch.index.gallery import build_gallery_from_packed_device
 from hashgan_tpu_torch.models.encoders import SmallCNNEncoder
 from hashgan_tpu_torch.ops import _build
 from hashgan_tpu_torch.ops import mxu_scan as ms
+from hashgan_tpu_torch.ops.hamming import (
+    hamming_distance_t,
+    hamming_distance_torch,
+    hamming_scan_topk,
+)
 from hashgan_tpu_torch.ops.pack import pack_codes, pack_codes_torch
 from hashgan_tpu_torch.train.hash_step import make_encode_fn
 from hashgan_tpu_torch.utils.device import set_numerics
@@ -87,6 +92,51 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         ms.fused_rescan_keys(q, gal.canon_bg.t().contiguous().t(),
                              torch.zeros((7, 2), dtype=torch.int32, device=dev),
                              L * c + 1, 100)
+
+
+@pytest.mark.parametrize("w,q,n,off", [(1, 256, 5400, 0), (1, 33, 1025, 1),
+                                       (2, 7, 3001, 3), (3, 65, 2047, 2),
+                                       (4, 1, 1, 0), (4, 40, 5, 1),
+                                       (5, 9, 777, 0), (8, 3, 100, 2)])
+def test_hamming_kernel_matches_plain(dev, w, q, n, off):
+    """Ragged Q and N, W = 1..5 and 8 (runtime-W instantiation past 4),
+    and column slices whose rows are not 16-byte aligned."""
+    g = torch.Generator(device=dev).manual_seed(q * n + w)
+    pq = torch.randint(-2**31, 2**31 - 1, (q, w), dtype=torch.int32,
+                       device=dev, generator=g)
+    gt = torch.randint(-2**31, 2**31 - 1, (w, n + off + 5), dtype=torch.int32,
+                       device=dev, generator=g)[:, off:off + n]
+    before = _build.launch_counts()["hamming"]
+    got = hamming_distance_t(pq, gt)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["hamming"] == before + 1
+    assert torch.equal(got, hamming_distance_torch(pq, gt.t()))
+    assert torch.equal(got.cpu(), hamming_distance_t(pq.cpu(), gt.cpu()))
+
+
+@pytest.mark.parametrize("n,k,slab,valid_n", [(3000, 100, 1024, None),
+                                              (700, 50, 700, 650),
+                                              (10, 40, 3, None)])
+def test_scan_topk_on_gpu_equals_cpu(dev, n, k, slab, valid_n):
+    g = torch.Generator(device=dev).manual_seed(n)
+    vocab = torch.randint(-2**31, 2**31 - 1, (4, 2), dtype=torch.int32,
+                          device=dev, generator=g)
+    gal = vocab[torch.randint(0, 4, (n,), device=dev, generator=g)]  # ties
+    pq = vocab[torch.randint(0, 4, (6,), device=dev, generator=g)]
+    gt = gal.t().contiguous()
+    d, i = hamming_scan_topk(pq, gt, k=k, slab=slab, valid_n=valid_n)
+    dc, ic = hamming_scan_topk(pq.cpu(), gt.cpu(), k=k, slab=slab,
+                               valid_n=valid_n)
+    assert torch.equal(d.cpu(), dc) and torch.equal(i.cpu(), ic)
+
+
+def test_hamming_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    pq = torch.zeros((2, 1), dtype=torch.int32, device=dev)
+    gt = torch.zeros((1, 64), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="unit column stride"):
+        hamming_distance_t(pq, gt[:, ::2])
+    with pytest.raises(ValueError, match="int32"):
+        hamming_distance_t(pq.long(), gt)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -28,14 +28,17 @@ def _fields(cfg, prefix=""):
             yield f"{prefix}{f.name}", value
 
 
-@pytest.mark.parametrize("name", ["config1", "config5",
+@pytest.mark.parametrize("name", ["config1", "config5", "config1_cal",
                                   "cifar10_32bit_encoder_only",
                                   "synthetic_1m_128bit_scan"])
 def test_presets_carry_the_reference_values(name):
     ref = get_config_jax(name)
     got = dict(_fields(get_config(name)))
-    assert {"encoder.bits", "data.n_database", "index.topk",
-            "train.seed"} <= set(got)
+    assert {"encoder.bits", "data.n_database", "index.topk", "train.seed",
+            "encoder.lr", "hash_loss.alpha", "eval.R", "use_gan"} <= set(got)
+    # The one deliberate difference: torch checkpoints get their own
+    # directory, never the reference's.
+    assert got.pop("train.workdir") == "/tmp/hashgan_tpu_torch"
     for path, value in got.items():
         want = ref
         for part in path.split("."):

@@ -155,8 +155,8 @@ def test_seeded_init_and_bfloat16_compute():
         assert torch.equal(pa, pb), name
     enc = SmallCNNEncoder(bits=48, dim=8, dtype=dtype_from_name("bfloat16"),
                           generator=torch.Generator().manual_seed(5))
-    assert enc.conv0a.weight.dtype == torch.bfloat16
-    assert enc.hash.hash_fc.weight.dtype == torch.float32
+    # float32 storage, as Flax keeps it; forward rounds to bfloat16 per op
+    assert {p.dtype for p in enc.parameters()} == {torch.float32}
     codes = make_encode_fn(enc)(_images(2, seed=6))
     assert codes.dtype == torch.float32 and codes.shape == (2, 48)
     assert torch.isfinite(codes).all() and (codes.abs() < 1).all()
