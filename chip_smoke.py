@@ -1,17 +1,22 @@
-"""Smoke run of the PyTorch + CUDA port on one NVIDIA GPU: the serving path
-and config1's stage-II training and evaluation.
+"""Smoke run of the PyTorch + CUDA port on one NVIDIA GPU: the serving path,
+every single-device search engine, and config1's stage-II training and
+evaluation.
 
     python3 chip_smoke.py        (from the repository root; no arguments)
 
 Builds the port's CUDA kernels from ``hashgan_tpu_torch/csrc``, holds each
 against its plain PyTorch version, drives the serving path at the full
 width of the ``config5`` preset (SmallCNN dim 64, 128 bits, 1,048,576-item
-gallery, exact top-100, 256-query batches) and the HTTP server, then trains
-the ``config1`` encoder (SmallCNN dim 64, 32 bits, batch 64) for 500 steps
-on its 5,000-image split and evaluates it by Hamming ranking over the
-54,000-image database, and checks every answer against plain witnesses
-and numpy oracles. Imports nothing of JAX and nothing of the JAX package
-``hashgan_tpu``: the presets and the synthetic images come from the port.
+gallery, exact top-100, 256-query batches), then every other engine of
+``PackedGallery.topk`` on that gallery (large k up to 5,000 through the
+``ServingPipeline``, repair, the pm8 copy, approx mode, the sort engine
+past ``large_k_max``) and on a 17,000,000-item slabbed gallery, and the
+HTTP server, then trains the ``config1`` encoder (SmallCNN dim 64, 32
+bits, batch 64) for 500 steps on its 5,000-image split and evaluates it by
+Hamming ranking over the 54,000-image database, and checks every answer
+against plain witnesses and numpy oracles. Imports nothing of JAX and
+nothing of the JAX package ``hashgan_tpu``: the presets and the synthetic
+images come from the port.
 
 Each phase prints one line; then the card's name and power limit, the
 kernels as one JSON object, and as the last line
@@ -21,6 +26,7 @@ non-zero without that line — also when no GPU is visible.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import os
@@ -79,17 +85,26 @@ KERNEL_INFO = {
                      "hashgan_tpu/ops/mxu_scan.py:489"),
     "hamming": ("hashgan_tpu_torch/csrc/hamming.cu",
                 "hashgan_tpu/ops/hamming.py:48"),
+    "subgroupmin_scan": ("hashgan_tpu_torch/csrc/subgroupmin_scan.cu",
+                         "hashgan_tpu/ops/mxu_large_k.py:70"),
+    "groupmin_scan": ("hashgan_tpu_torch/csrc/groupmin_scan.cu",
+                      "hashgan_tpu/ops/mxu_scan.py:208"),
+    "groupmin_min2": ("hashgan_tpu_torch/csrc/groupmin_min2.cu",
+                      "hashgan_tpu/ops/groupmin.py:97"),
+    "pm_groupmin_scan": ("hashgan_tpu_torch/csrc/pm_groupmin_scan.cu",
+                         "hashgan_tpu/ops/mxu_scan.py:142"),
 }
 SERVING_KERNELS = ("pack", "mxu_fullkey_scan", "fused_rescan")  # phase 4
+ENGINE_KERNELS = tuple(KERNEL_INFO)                             # phase 4b
 STAGE2_KERNELS = ("pack", "hamming")                            # phase 7
-# The card's rates for bound_ms (NVIDIA's H100 SXM data sheet): HBM bytes
-# per second, and float32 operations outside the tensor cores. Popcounts
-# have no data-sheet rate; POPC_PER_S is an estimate: 132 SMs x 16 per
-# clock (the CUDA C++ Programming Guide's throughput table, compute
-# capability 9.0) x the 1.98 GHz maximum SM clock.
+LARGE_K = (1000, 5000)  # the large-k engine's k (MAP@5000 is the protocol's)
+N_SLABBED = 17_000_000  # past groupmin_capacity_ok: 2 slabs of 16,384,000
+# The card's rates for bound_ms (NVIDIA's H100 SXM data sheet, dense): HBM
+# bytes per second, float32 operations outside the tensor cores, and int8
+# tensor-core operations.
 HBM_BYTES_PER_S = 3.35e12
 FP32_PER_S = 67e12
-POPC_PER_S = 132 * 16 * 1.98e9
+INT8_PER_S = 1979e12
 
 
 def check(cond: bool, what: str) -> None:
@@ -103,6 +118,15 @@ def bound(bytes_moved: float, ops: float, ops_per_s: float) -> dict:
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / ops_per_s
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def distance_ops(pairs: int, bits: int) -> int:
+    """Operations of ``pairs`` Hamming distances of ``bits`` bits, counted
+    as the +-1 int8 product (a multiply and an add per bit), the card's
+    fastest route to them. Every kernel that computes distances is bounded
+    so, against INT8_PER_S, whether it uses __popc, __dp4a or tensor
+    cores: one function, one bound."""
+    return 2 * pairs * bits
 
 
 def device_ms(torch, fn, reps: int, runs: int = 5) -> float:
@@ -175,6 +199,353 @@ def plain_exact_topk(torch, pq, canon, k: int, chunk: int = 16):
         ds.append(key // n)
         ids.append(key % n)
     return torch.cat(ds).cpu().numpy(), torch.cat(ids).cpu().numpy()
+
+
+def equal_lists(torch, got, want) -> bool:
+    """Two (distances, indices) results equal element for element; either
+    may be a pair of tensors or of numpy arrays."""
+    return all(np.array_equal(torch.as_tensor(a).cpu().numpy(),
+                              torch.as_tensor(b).cpu().numpy())
+               for a, b in zip(got, want))
+
+
+def recall(got_i, want_i) -> float:
+    """Mean share of each row of ``want_i`` found in the same row of
+    ``got_i`` (index arrays of equal width)."""
+    got_i, want_i = np.asarray(got_i), np.asarray(want_i)
+    return float(np.mean([len(np.intersect1d(a, b)) / len(b)
+                          for a, b in zip(got_i, want_i)]))
+
+
+def kernel_breakdown(torch, fn, top: int = 5):
+    """Where one call of ``fn`` spends device time: torch.profiler over a
+    second call (the first warms up), device events only. Returns (device
+    ms, [(kernel name, ms), ...] largest first)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_kernel = collections.Counter()
+    for avg in prof.key_averages():
+        if avg.device_type == DeviceType.CUDA and not getattr(
+                avg, "is_user_annotation", False):
+            by_kernel[avg.key[:70]] += avg.self_device_time_total / 1e3
+    return sum(by_kernel.values()), by_kernel.most_common(top)
+
+
+def kernels_5_to_8(torch, pq, gg, bg, n, lib_ms):
+    """Phase 3 for kernels 5-8 at config5's shapes (256 queries x 1,048,576
+    items x 128 bits): each bit-identical to its plain twin, with its device
+    time, the plain twin's and the library yardstick's. ``lib_ms`` is the
+    +-1 bf16 matmul over the same codes (kernel 2's yardstick: every
+    distance these scans reduce). Kernel 8 reads the gallery's 134 MB int8
+    pm8 copy, and its yardstick is ``torch._int_mm`` on the same operands
+    where that call takes them. Also holds the rescan kernel at sigma = 16
+    on the large-k engine's k = 1,000 winner rows. Returns (stats, the
+    sigma-16 rescan's device ms)."""
+    from hashgan_tpu_torch.ops import groupmin as gm
+    from hashgan_tpu_torch.ops import mxu_large_k as lk
+    from hashgan_tpu_torch.ops import mxu_scan as ms
+
+    q = pq.shape[0]
+    w, L, c = gg.shape
+    stride = L * c + 1
+    stats = {}
+
+    def held(name, fn, plain, in_bytes, out_bytes, ops, rate, library):
+        got, want = fn(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"{name} != plain at {q} x {L * c} x {32 * w}")
+        stats[name] = {
+            "max_abs_err": max(float((a.double() - b.double()).abs().max())
+                               for a, b in zip(got, want)),
+            "ms": device_ms(torch, fn, 20),
+            "plain_ms": device_ms(torch, plain, 1, 3),
+            **bound(in_bytes + out_bytes, ops, rate),
+            "library_ms": library,
+        }
+        return got[0]
+
+    packed_bytes = pq.numel() * 4 + gg.numel() * 4
+    ops = distance_ops(q * L * c, 32 * w)
+    full = held("subgroupmin_scan",
+                lambda: lk.mxu_subgroupmin_scan(pq, gg, n, stride),
+                lambda: lk.subgroupmin_scan_keys_torch(pq, gg, n, stride,
+                                                       lk.SIGMA),
+                packed_bytes, full_bytes(q, (L // lk.SIGMA) * c), ops,
+                INT8_PER_S, lib_ms)
+    # the large-k engine's k = 1,000 winner subgroups -> rescan rows
+    r_sub = L // lk.SIGMA
+    i1 = torch.sort(full, dim=1).values[:, :LARGE_K[0]] % stride
+    us = (i1 // c // lk.SIGMA) * c + i1 % c
+    rows = ((us % c) * r_sub + us // c).to(torch.int32)
+    rescan = lambda: ms.fused_rescan_keys(pq, bg, rows, stride, n,  # noqa: E731
+                                          sigma=lk.SIGMA, pad_d=32 * w + 1)
+    check(torch.equal(rescan(), ms._rescan_rows(pq, bg, rows, lk.SIGMA, stride,
+                                                n, 32 * w + 1)),
+          "rescan != plain at sigma 16, 256 x 1,000 winner subgroups")
+    sigma_ms = device_ms(torch, rescan, 50)
+    held("groupmin_scan", lambda: ms.mxu_groupmin_scan(pq, gg, n),
+         lambda: ms.mxu_groupmin_scan_torch(pq, gg, n), packed_bytes,
+         full_bytes(q, c), ops, INT8_PER_S, lib_ms)
+    held("groupmin_min2", lambda: gm.groupmin_scan(pq, gg, n),
+         lambda: gm.groupmin_scan_torch(pq, gg, n), packed_bytes,
+         2 * full_bytes(q, c), ops, INT8_PER_S, lib_ms)
+
+    gpm = ms.grouped_to_pm8(gg, ms.pm8_column_block(c))  # 134 MB of int8
+    qv = ms.unpack_to_pm8(pq)
+    kb = ms.build_key_base_i32(L, c, 32 * w, n, pq.device)
+    try:  # the yardstick only: the port never calls it
+        flat = gpm.view(32 * w, -1)
+        torch._int_mm(qv, flat)
+        lib8 = device_ms(torch, lambda: torch._int_mm(qv, flat), 5)
+    except RuntimeError as e:
+        print(f"torch._int_mm does not take the pm8 operands: {e}", flush=True)
+        lib8 = None
+    held("pm_groupmin_scan", lambda: ms.mxu8_groupmin_scan(qv, gpm, kb),
+         lambda: ms.mxu8_groupmin_scan_torch(qv, gpm, kb),
+         qv.numel() + gpm.numel() + kb.numel() * 4, full_bytes(q, c), ops,
+         INT8_PER_S, lib8)
+    del gpm
+    # the bf16 copy of the same gallery (float32 keys): held, not timed
+    gpm = ms.grouped_to_pm8(gg, ms.pm8_column_block(c), torch.bfloat16)
+    qb = ms.unpack_to_pm1(pq)
+    kbf = ms.build_key_base(L, c, 32 * w, n, pq.device)
+    check(torch.equal(ms.mxu8_groupmin_scan(qb, gpm, kbf),
+                      ms.mxu8_groupmin_scan_torch(qb, gpm, kbf)),
+          "pm8 scan != plain on the bf16 copy")
+    return stats, sigma_ms
+
+
+def full_bytes(rows: int, cols: int) -> int:
+    """Bytes of a (rows, cols) int32 or float32 array."""
+    return rows * cols * 4
+
+
+def engines(torch, engine, gallery, batches, gen) -> dict:
+    """Phase 4b: every other single-device route of ``PackedGallery.topk``,
+    driven with the launch counts set to 0 just before and read just
+    after: large k through ``ServingPipeline(k=5000)`` and ``mxu_topk_large``
+    in every select, the k = 256 / 257 boundary, repair, the pm8 copy,
+    approx mode (column and subgroup engines), the sort engine past
+    ``large_k_max``, and a 17,000,000-item slabbed gallery. Every answer is
+    then held against a plain witness, a plain selection or the numpy
+    oracle. Returns the launch counts of that run."""
+    from hashgan_tpu_torch.index import (
+        ServingPipeline,
+        build_gallery_from_packed_device,
+    )
+    from hashgan_tpu_torch.ops import _build
+    from hashgan_tpu_torch.ops import mxu_large_k as lk
+    from hashgan_tpu_torch.ops import mxu_scan as ms
+    from hashgan_tpu_torch.ops.groupmin import groupmin_topk
+    from hashgan_tpu_torch.ops.hamming import hamming_scan_topk
+    from hashgan_tpu_torch.ops.pack import pack_codes
+    from hashgan_tpu_torch.ops.slab_scan import mxu_slab_capacity
+
+    dev = gallery.device
+    n, bits = gallery.n, gallery.bits
+    gg, bg = gallery.gallery_grouped, gallery.canon_bg
+    w, L, c = gg.shape
+    stride = L * c + 1
+    canon = gallery.packed_canonical[:n]
+    k_serve = LARGE_K[-1]
+    n_q = len(batches) * len(batches[0])
+    selects = (("sortdecode", "scatter"), ("twolevel", "scatter"),
+               ("radix", "scatter"), ("radix", "searchsorted"))
+
+    # set-up: what pinning a fresh pair of k=5000 result buffers costs
+    # (before any buffer of that size exists; held to the end, so the
+    # caching host allocator cannot hand them to the pipeline), the pm8
+    # copy, the slabbed gallery, a warm pipeline
+    fresh, pin_ms = [], []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        fresh.append([torch.empty((BATCH, k_serve), dtype=torch.int32,
+                                  pin_memory=True) for _ in range(2)])
+        pin_ms.append((time.perf_counter() - t0) * 1e3)
+    pm8_gal = build_gallery_from_packed_device(canon, gallery.labels, bits,
+                                               build_pm8=True)
+    t0 = time.perf_counter()
+    words = torch.randint(-2**31, 2**31 - 1, (N_SLABBED, w), dtype=torch.int32,
+                          device=dev, generator=gen)
+    big = build_gallery_from_packed_device(
+        words, np.zeros((N_SLABBED, 1), np.float32), bits)
+    torch.cuda.synchronize()
+    big_build_s = time.perf_counter() - t0
+    gs, _, valids, slab_items = big.gallery_slabbed
+    check(big.gallery_grouped is None
+          and slab_items == mxu_slab_capacity(w)  # 16,384,000 at 128 bits
+          and list(valids) == [slab_items, N_SLABBED - slab_items],
+          f"17M gallery layout: {gs.shape}, {list(valids)}")
+    pipe = ServingPipeline(engine, k=k_serve, depth=2)
+    for _ in pipe.map_batches(batches[:1]):  # warm-up: first-call set-up
+        pass
+    pq = pack_codes(engine.encode(batches[0]))
+    torch.cuda.synchronize()
+
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    served = list(pipe.map_batches(batches))
+    serve_s = time.perf_counter() - t0
+    large = {f"{s}/{m}": lk.mxu_topk_large(pq, gg, bg, n, k=LARGE_K[0],
+                                           select=s, compact=m)
+             for s, m in selects}
+    at256, at257 = gallery.topk(pq, k=256), gallery.topk(pq, k=257)
+    exact100 = gallery.topk(pq, k=100)
+    rep100 = gallery.topk(pq, k=100, repair=100)
+    rep8 = gallery.topk(pq, k=100, repair=8)
+    fell_back = int(groupmin_topk(pq, gg, bg, n, k=100, repair=8)[2].sum())
+    pm_exact = pm8_gal.topk(pq, k=100)
+    pm_approx = pm8_gal.topk(pq, k=100, mode="approx")
+    approx100 = gallery.topk(pq, k=100, mode="approx")
+    approx1000 = gallery.topk(pq, k=LARGE_K[0], mode="approx")
+    deep = gallery.topk(pq[:64], k=10_000)
+    slabbed, slab_s = {}, {}
+    for k in (100, LARGE_K[0]):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        slabbed[k] = big.topk(pq, k=k)
+        torch.cuda.synchronize()
+        slab_s[k] = time.perf_counter() - t1
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    check(all(counts[k] > 0 for k in ENGINE_KERNELS),
+          f"the engines did not launch every kernel: {counts}")
+
+    for j, (batch, r) in enumerate(zip(batches, served)):
+        bpq = pack_codes(engine.encode(batch))
+        check(equal_lists(torch, (r.distances, r.indices),
+                          plain_exact_topk(torch, bpq, canon, k_serve)),
+              f"batch {j}: pipeline top-{k_serve} != plain witness")
+        if j == 0:
+            od, oi = oracle_topk(bpq[:8].cpu().numpy().view(np.uint32),
+                                 gallery.canonical_packed(), k_serve)
+            check(equal_lists(torch, (r.distances[:8], r.indices[:8]),
+                              (od, oi)),
+                  f"batch 0: pipeline top-{k_serve} != numpy oracle")
+    wd, wi = plain_exact_topk(torch, pq, canon, LARGE_K[0])
+    for name, res in large.items():
+        check(equal_lists(torch, res, (wd, wi)),
+              f"mxu_topk_large {name} at k={LARGE_K[0]} != plain witness")
+    check(equal_lists(torch, at256, (wd[:, :256], wi[:, :256]))
+          and equal_lists(torch, at257, (wd[:, :257], wi[:, :257])),
+          "k = 256 / 257 across the engine boundary != plain witness")
+    for name, res in (("repair=100", rep100), ("repair=8", rep8),
+                      ("pm8", pm_exact), ("mxu_topk", exact100)):
+        check(equal_lists(torch, res, (wd[:, :100], wi[:, :100])),
+              f"{name} top-100 != plain witness")
+    check(equal_lists(torch, pm_approx, approx100),
+          "pm8 approx != approx without the pm8 copy")
+    # the approx engines against the same selection over the plain twins'
+    # keys; recall against the exact lists
+    col_keys = ms._full_column_keys(ms.mxu_groupmin_scan_torch(pq, gg, n),
+                                    L, c, stride)
+    sub_keys = lk.subgroupmin_scan_keys_torch(pq, gg, n, stride, lk.SIGMA)
+    for res, keys, k in ((approx100, col_keys, 100),
+                         (approx1000, sub_keys, LARGE_K[0])):
+        want = ms.decode_keys(torch.sort(keys, dim=1).values[:, :k], stride,
+                              bits, L * c)
+        check(equal_lists(torch, res, want),
+              f"approx top-{k} != plain selection")
+    rec = (recall(approx100[1].cpu(), wi[:, :100]),
+           recall(approx1000[1].cpu(), wi))
+    check(min(rec) >= 0.95, f"approx recall {rec} < 0.95")
+    check(equal_lists(torch, deep,
+                      plain_exact_topk(torch, pq[:64], canon, 10_000)),
+          "top-10000 (sort engine) != plain witness")
+
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    big_t = big.scan_layout()  # made once, kept on the gallery
+    torch.cuda.synchronize()
+    scan_layout_ms = (time.perf_counter() - t1) * 1e3
+    for k, res in slabbed.items():
+        check(equal_lists(torch, res, hamming_scan_topk(pq, big_t, k=k,
+                                                        valid_n=N_SLABBED)),
+              f"17M slabbed top-{k} != hamming_scan_topk")
+    od, oi = oracle_topk(pq[:2].cpu().numpy().view(np.uint32),
+                         big.canonical_packed(), LARGE_K[0])
+    d, i = slabbed[LARGE_K[0]]
+    check(equal_lists(torch, (d[:2], i[:2]), (od, oi))
+          and equal_lists(torch, [t[:2] for t in slabbed[100]],
+                          (od[:, :100], oi[:, :100])),
+          "17M slabbed top-k != numpy oracle")
+    profiled = {
+        f"image batch k={k_serve}": lambda: engine.query_images(batches[0],
+                                                                 k=k_serve),
+        f"approx k={LARGE_K[0]}": lambda: gallery.topk(pq, k=LARGE_K[0],
+                                                       mode="approx"),
+        f"17M slabbed k={LARGE_K[0]}": lambda: big.topk(pq, k=LARGE_K[0]),
+    }
+    for name, fn in profiled.items():
+        total, top = kernel_breakdown(torch, fn)
+        print(f"phase 4b where the time goes, {name}: {total:.4f} device ms; "
+              + "; ".join(f"{k} {v:.4f}" for k, v in top), flush=True)
+    del big, big_t, words, pm8_gal
+
+    timed = {"mxu_topk k=100": lambda: gallery.topk(pq, k=100)}
+    for k in LARGE_K:  # every select: the reference's default was a TPU pick
+        for sel, cmp in selects:
+            timed[f"large k={k} {sel}/{cmp}"] = (
+                lambda k=k, sel=sel, cmp=cmp: lk.mxu_topk_large(
+                    pq, gg, bg, n, k=k, select=sel, compact=cmp))
+    timed.update({
+        "approx k=100": lambda: gallery.topk(pq, k=100, mode="approx"),
+        f"approx k={LARGE_K[0]}": lambda: gallery.topk(pq, k=LARGE_K[0],
+                                                       mode="approx"),
+        "repair=100 k=100": lambda: gallery.topk(pq, k=100, repair=100),
+    })
+    ms_per = {name: device_ms(torch, fn, 3, 3) for name, fn in timed.items()}
+    # The pipeline's spread, in turns, by what the caller does with each
+    # result: keeps it (as in the counted run: each batch takes a pinned
+    # pair that no earlier result has freed), copies it out and drops the
+    # pinned views (the pair goes back to the caching host allocator), or
+    # consumes it as it arrives.
+    kept, runs = [], {"kept": [serve_s], "copied": [], "consumed": []}
+    for _ in range(3):
+        for how in ("consumed", "copied", "kept"):
+            t1 = time.perf_counter()
+            for r in pipe.map_batches(batches):
+                if how == "kept":
+                    kept.append(r)
+                elif how == "copied":
+                    kept.append((r.distances.copy(), r.indices.copy()))
+            runs[how].append(time.perf_counter() - t1)
+    del kept, fresh
+    print(f"phase 4b engines (config5 gallery, {n} items x {bits} bits, "
+          f"{pq.shape[0]} image queries): ServingPipeline(k={k_serve}) "
+          f"{len(batches)} x {len(batches[0])} images == plain witness, "
+          f"first 8 == numpy oracle; after a one-batch warm-up, runs with "
+          + "; ".join(f"results {how} " + ", ".join(
+              f"{t * 1e3:.2f} ms ({n_q / t:.1f} QPS)" for t in ts)
+              + f" (median {n_q / statistics.median(ts):.1f} QPS)"
+              for how, ts in runs.items())
+          + "; pinning a fresh result pair (2 x "
+          f"{BATCH * k_serve * 4 / 1e6:.2f} MB) "
+          + ", ".join(f"{t:.3f}" for t in pin_ms) + " ms; "
+          f"mxu_topk_large k={LARGE_K[0]} == plain witness under "
+          f"{', '.join(large)}; k=256/257 == witness across the boundary; "
+          f"repair=100 and repair=8 == mxu_topk ({fell_back} of "
+          f"{pq.shape[0]} queries fell back at repair=8); pm8 exact == "
+          f"mxu_topk, pm8 approx == approx; approx k=100 / {LARGE_K[0]} == "
+          f"plain selection, recall {rec[0]:.4f} / {rec[1]:.4f}; k=10000 "
+          f"(sort engine) == plain witness; {N_SLABBED} items slabbed "
+          f"{gs.shape[0]} x {slab_items}: built in {big_build_s:.3f} s, "
+          f"top-100 {slab_s[100] * 1e3:.2f} ms, top-{LARGE_K[0]} "
+          f"{slab_s[LARGE_K[0]] * 1e3:.2f} ms (host clock), == "
+          f"hamming_scan_topk, first 2 == numpy oracle, its scan layout "
+          f"made once in {scan_layout_ms:.2f} ms; device ms per call: "
+          + "; ".join(f"{k} {v:.4f}" for k, v in ms_per.items())
+          + f"; launches {counts}", flush=True)
+    return counts
 
 
 def _log_records(workdir: str) -> list:
@@ -277,6 +648,7 @@ def stage2(torch, cfg) -> dict:
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     import torch
 
     sys.path.insert(0, REPO)
@@ -314,15 +686,35 @@ def main() -> None:
         hamming_distance_torch,
         hamming_scan_topk,
     )
+    from hashgan_tpu_torch.ops.groupmin import (
+        groupmin_scan,
+        groupmin_scan_torch,
+        groupmin_topk,
+    )
+    from hashgan_tpu_torch.ops.mxu_large_k import (
+        mxu_subgroupmin_scan,
+        mxu_topk_large,
+        subgroupmin_scan_keys_torch,
+    )
     from hashgan_tpu_torch.ops.mxu_scan import (
+        _rescan_rows,
         _rescan_winner_columns,
         _twolevel_topk_min,
+        build_key_base,
+        build_key_base_i32,
         check_key_space,
         fullkey_scan_keys,
         fullkey_scan_keys_torch,
         fused_rescan_keys,
+        grouped_to_pm8,
+        mxu8_groupmin_scan,
+        mxu8_groupmin_scan_torch,
         mxu_fullkey_scan,
+        mxu_groupmin_scan,
+        mxu_groupmin_scan_torch,
         mxu_topk,
+        pm8_column_block,
+        unpack_to_pm1,
     )
     from hashgan_tpu_torch.ops.pack import pack_codes, pack_codes_torch
     from hashgan_tpu_torch.train.hash_step import encode_dataset, make_encode_fn
@@ -376,9 +768,8 @@ def main() -> None:
         "ms": device_ms(torch, lambda: fullkey_scan_keys(pq, gg, n, stride), 20),
         "plain_ms": device_ms(
             torch, lambda: fullkey_scan_keys_torch(pq, gg, n, stride), 1, 3),
-        # one popcount per (query, item, word)
         **bound(pq.numel() * 4 + gg.numel() * 4 + full.numel() * 4,
-                BATCH * L * C * gg.shape[0], POPC_PER_S),
+                distance_ops(BATCH * L * C, bits), INT8_PER_S),
         "library_ms": device_ms(torch, lib_scan, 5),
     }
     del lib_scan
@@ -394,10 +785,14 @@ def main() -> None:
         "plain_ms": device_ms(
             torch, lambda: _rescan_winner_columns(pq, bg, cols, stride, n), 10),
         **bound(pq.numel() * 4 + cols.numel() * 4 + n_rows * bg.shape[1] * 4
-                + res.numel() * 4, res.numel() * gg.shape[0], POPC_PER_S),
+                + res.numel() * 4, distance_ops(res.numel(), bits),
+                INT8_PER_S),
         "library_ms": None,
     }
     del codes, full, want, res
+    new_stats, sigma_ms = kernels_5_to_8(
+        torch, pq, gg, bg, n, stats["mxu_fullkey_scan"]["library_ms"])
+    stats.update(new_stats)
 
     erng = np.random.default_rng(7)
     for e_bits, e_n, e_q, e_k in EDGE_CASES:
@@ -435,6 +830,51 @@ def main() -> None:
         check((i[:, kk:] == e_L * e_C).all()
               and (d[:, kk:] == 32 * e_gg.shape[0] + 1).all(),
               f"padding sentinels wrong at edge case {e_bits, e_n}")
+        # kernels 5-8 and the sigma < L rescan at the edge (L = 8: sigma 8)
+        e_w = e_gg.shape[0]
+        for sigma in (e_L, 2):
+            check(torch.equal(
+                mxu_subgroupmin_scan(e_pq, e_gg, e_n, e_stride, sigma),
+                subgroupmin_scan_keys_torch(e_pq, e_gg, e_n, e_stride, sigma)),
+                f"subgroup scan != plain at edge case {e_bits, e_n, sigma}")
+            e_rows = torch.from_numpy(erng.integers(
+                0, e_C * (e_L // sigma), (e_q, 7), dtype=np.int32)).to(dev)
+            check(torch.equal(
+                fused_rescan_keys(e_pq, e_bg, e_rows, e_stride, e_n,
+                                  sigma=sigma, pad_d=32 * e_w + 1),
+                _rescan_rows(e_pq, e_bg, e_rows, sigma, e_stride, e_n,
+                             32 * e_w + 1)),
+                f"rescan != plain at edge case {e_bits, e_n, sigma}")
+        check(torch.equal(mxu_groupmin_scan(e_pq, e_gg, e_n),
+                          mxu_groupmin_scan_torch(e_pq, e_gg, e_n)),
+              f"column-min scan != plain at edge case {e_bits, e_n}")
+        check(all(torch.equal(a, b) for a, b in zip(
+            groupmin_scan(e_pq, e_gg, e_n),
+            groupmin_scan_torch(e_pq, e_gg, e_n))),
+            f"min2 scan != plain at edge case {e_bits, e_n}")
+        for dt in (torch.int8, torch.bfloat16):
+            e_pm = grouped_to_pm8(e_gg, pm8_column_block(e_C), dt)
+            e_qv = unpack_to_pm1(e_pq, dt)
+            e_kb = (build_key_base_i32 if dt == torch.int8 else build_key_base)(
+                e_L, e_C, 32 * e_w, e_n, dev)
+            check(torch.equal(mxu8_groupmin_scan(e_qv, e_pm, e_kb),
+                              mxu8_groupmin_scan_torch(e_qv, e_pm, e_kb)),
+                  f"pm8 scan != plain at edge case {e_bits, e_n, dt}")
+        # the engines at the edge: large k past n, repair where k <= C
+        big_k = e_n + 5
+        d, i = mxu_topk_large(e_pq, e_gg, e_bg, e_n, k=big_k)
+        od, oi = oracle_topk(
+            e_pq.cpu().numpy().view(np.uint32),
+            e_packed.cpu().numpy().view(np.uint32), e_n)
+        d, i = d.cpu().numpy(), i.cpu().numpy()
+        check((i[:, :e_n] == oi).all() and (d[:, :e_n] == od).all()
+              and (i[:, e_n:] == e_L * e_C).all(),
+              f"large-k top-{big_k} != oracle at edge case {e_bits, e_n}")
+        r_k = min(e_k, e_C, e_n)
+        d, i, _ = groupmin_topk(e_pq, e_gg, e_bg, e_n, k=r_k, repair=r_k)
+        check((i.cpu().numpy() == oi[:, :r_k]).all()
+              and (d.cpu().numpy() == od[:, :r_k]).all(),
+              f"repair top-{r_k} != oracle at edge case {e_bits, e_n}")
 
     # Kernel 4 at the evaluation's shapes: config1's MAP / P@H<=2 chunk
     # (256 queries x 54,000 items) and its histogram slab (1,000 x 32,768).
@@ -459,7 +899,7 @@ def main() -> None:
             "plain_ms": device_ms(
                 torch, lambda: hamming_distance_torch(h_q, h_g), 5),
             **bound(4 * (h_q.numel() + h_g.numel() + got.numel()),
-                    got.numel() * words1, POPC_PER_S),
+                    distance_ops(got.numel(), 32 * words1), INT8_PER_S),
         }
         lib, n_bits = pm1_matmul(torch, h_q, h_g)
         check(torch.equal(((n_bits - lib().float()) / 2).int(), got),
@@ -508,13 +948,17 @@ def main() -> None:
     del packed
     torch.cuda.synchronize()
     print("phase 3 kernels: bit-identical to their plain versions at the "
-          f"main-path shapes, {len(EDGE_CASES)} scan and "
-          f"{len(HAMMING_EDGES) + 1} Hamming edge shapes; hamming_scan_topk "
-          "== numpy oracle at the edges and == mxu_topk for 64 config5 "
-          "queries; device ms per call, kernel / plain / library / bound: "
+          f"main-path shapes (kernel 8 on the int8 and the bf16 pm8 copy), "
+          f"{len(EDGE_CASES)} scan and {len(HAMMING_EDGES) + 1} Hamming edge "
+          "shapes; the large-k and repair engines and hamming_scan_topk == "
+          "numpy oracle at the edges, hamming_scan_topk == mxu_topk for 64 "
+          "config5 queries; rescan at sigma 16 (256 x 1,000 winner "
+          f"subgroups) {sigma_ms:.4f} ms; device ms per call, kernel / plain "
+          "/ library / bound: "
           + "; ".join(f"{k} {v['ms']:.4f} / {v['plain_ms']:.4f} / "
                       f"{v['library_ms']} / {v['bound_ms']:.4f}"
-                      for k, v in {**{k: stats[k] for k in SERVING_KERNELS},
+                      for k, v in {**{k: stats[k] for k in KERNEL_INFO
+                                      if k != "hamming"},
                                    **{f"hamming {s}": t for s, t in
                                       extra.items()}}.items()),
           flush=True)
@@ -604,6 +1048,9 @@ def main() -> None:
           f"batches at {n_streamed * BATCH / stream_s:.1f} QPS "
           f"({stream_s / n_streamed * 1e3:.3f} ms/batch)", flush=True)
 
+    # ---- phase 4b: the other engines on config5's gallery ----------------
+    engine_launches = engines(torch, engine, gallery, batches, gen)
+
     # ---- phase 5: config1 geometry, a gallery of encoded images ----------
     enc1 = SmallCNNEncoder(
         bits=cfg1.encoder.bits, dim=64,
@@ -670,30 +1117,35 @@ def main() -> None:
               "/remove")
         check(same(req("/query", {"codes": qc.tolist(), "k": 10}),
                    engine.query_codes(qc, k=10)), "/query after remove")
-        for bad in ({"codes": qc.tolist(), "k": 300},
-                    {"codes": qc.tolist(), "mode": "approx"}):
-            try:
-                req("/query", bad)
-                raise AssertionError(f"/query {list(bad)[1:]} was not refused")
-            except urllib.error.HTTPError as e:
-                check(e.code == 400, f"unsupported request gave {e.code}")
+        for extra in ({"k": 300}, {"mode": "approx"}):
+            check(same(req("/query", {"codes": qc.tolist(), **extra}),
+                       engine.query_codes(qc, **extra)), f"/query {extra}")
+        try:
+            req("/query", {"codes": qc.tolist(), "mode": "fast"})
+            raise AssertionError("/query mode=fast was not refused")
+        except urllib.error.HTTPError as e:
+            check(e.code == 400, f"an unknown mode gave {e.code}")
         stats_out = req("/stats")
-        check(stats_out["requests"]["/query"] == 6
-              and stats_out["errors"]["/query"] == 2, f"/stats {stats_out}")
+        check(stats_out["requests"]["/query"] == 7
+              and stats_out["errors"]["/query"] == 1, f"/stats {stats_out}")
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
     check(not thread.is_alive(), "server thread did not stop")
-    print(f"phase 6 server: /healthz, /query (images, codes), /extend, "
-          f"/remove, /stats answered as the direct engine; k=300 and "
-          f"approx refused with 400; p50 {stats_out['latency_ms']['p50']:.2f} ms",
-          flush=True)
+    print(f"phase 6 server: /healthz, /query (images, codes, k=300, "
+          f"approx), /extend, /remove, /stats answered as the direct engine; "
+          f"an unknown mode refused with 400; p50 "
+          f"{stats_out['latency_ms']['p50']:.2f} ms", flush=True)
 
     # ---- phase 7: config1 stage II, trained and evaluated ----------------
     # The serving kernels' launches come from phase 4's run, kernel 4's from
     # this one (the serving path does not launch it).
     launches["hamming"] = stage2(torch, cfg1)["hamming"]
+    for name in ENGINE_KERNELS:  # kernels 5-8: the engines phase's run
+        if name not in SERVING_KERNELS + STAGE2_KERNELS:
+            launches[name] = engine_launches[name]
+    print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

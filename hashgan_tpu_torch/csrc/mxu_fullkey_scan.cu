@@ -9,9 +9,11 @@
 // keys are the same because that identity is exact. This kernel takes the
 // PACKED queries and computes d by XOR + popcount instead.
 //
-// Bound on the H100: integer instruction throughput. Every (query, item)
-// pair costs W XORs, W popcounts, W adds and a min, Q*N*W of each
-// (256 x 1M x 4 = 1.07e9 popcounts per 256-query batch at 128 bits); POPC
+// Bound on the H100: the Q*N distances, whose fastest route on the card is
+// the +-1 int8 tensor-core product, 2*Q*N*B operations (35 us for 256
+// queries x 1M items x 128 bits at 1,979 TOP/s). This kernel spends integer
+// instructions instead: every (query, item) pair costs W XORs, W popcounts,
+// W adds and a min, Q*N*W of each (1.07e9 popcounts at that shape); POPC
 // runs at a quarter of the ALU rate. Gallery bytes (16 MB at 1M x 128
 // bits) stay L2-resident.
 // Design: gallery layout (W, L, C) with c minor; one thread per column, so a

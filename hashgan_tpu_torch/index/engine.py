@@ -1,7 +1,7 @@
 """End-to-end query engine: images (or codes) -> ranked neighbours.
 
 Port of ``hashgan_tpu/index/engine.py`` for one device: encode -> pack ->
-exact top-k, and a pipelined serving loop over the same steps.
+top-k, and a pipelined serving loop over the same steps.
 """
 
 from __future__ import annotations
@@ -15,6 +15,8 @@ import torch
 from torch import nn
 
 from hashgan_tpu_torch.index.gallery import PackedGallery
+from hashgan_tpu_torch.ops.mxu_large_k import grouped_topk
+from hashgan_tpu_torch.ops.mxu_scan import check_mode
 from hashgan_tpu_torch.ops.pack import pack_codes
 from hashgan_tpu_torch.train.hash_step import make_encode_fn
 
@@ -27,7 +29,7 @@ class QueryResult:
 
 
 class QueryEngine:
-    """encode -> pack -> exact top-k, wrapped for serving.
+    """encode -> pack -> top-k (``PackedGallery.topk``), wrapped for serving.
 
     ``encoder=None`` serves code queries only (a gallery without a model).
     The reference takes ``params`` as well; here they live in the module,
@@ -91,14 +93,27 @@ class ServingPipeline:
     results are copied into pinned host buffers behind an event. ``drain``
     waits for the OLDEST batch's event only, so the host prepares and
     enqueues batch t+1 while the device still runs batch t. At most
-    ``depth`` batches are in flight in ``map_batches``. The top-k is the
-    gallery's exact one (``PackedGallery.topk``), which refuses what the
-    port does not cover.
+    ``depth`` batches are in flight in ``map_batches``.
+
+    The returned arrays are views of the pinned buffers. PyTorch's caching
+    host allocator takes a pair back once the caller drops its results, so
+    a stream whose results are consumed pins memory only while it warms
+    up; every result the caller keeps holds its own pinned pair.
+
+    As in the reference, the top-k is the grouped layout's engine for every
+    k (``grouped_topk``: ``mxu_topk`` at k <= 256, ``mxu_topk_large``
+    beyond), in ``mode`` ("exact" or "approx"), on the packed words (a pm8
+    copy is not read). A gallery without a grouped layout (past
+    ``groupmin_capacity_ok``) serves through ``PackedGallery.topk``
+    instead, and is refused here.
 
     On a CPU gallery the same steps run synchronously (there is no stream
     to overlap with)."""
 
-    def __init__(self, engine: QueryEngine, k: int = 100, depth: int = 2):
+    def __init__(self, engine: QueryEngine, k: int = 100,
+                 mode: str = "exact", depth: int = 2):
+        check_mode(mode)
+        _grouped(engine.gallery)
         if engine._encode is None:
             raise ValueError(
                 "ServingPipeline needs an encoder (QueryEngine built "
@@ -106,12 +121,15 @@ class ServingPipeline:
             )
         self.engine = engine
         self.k = k
+        self.mode = mode
         self.depth = depth
         self._inflight: collections.deque = collections.deque()
 
     def _step(self, images: torch.Tensor):
         pq = pack_codes(self.engine.encode(images))
-        return self.engine.gallery.topk(pq, k=self.k)
+        gal = _grouped(self.engine.gallery)
+        return grouped_topk(pq, gal.gallery_grouped, gal.canon_bg,
+                            valid_n=gal.n, k=self.k, mode=self.mode)
 
     def submit(self, images_u8: np.ndarray) -> None:
         """Enqueue a batch (asynchronous on a GPU); results queue until
@@ -149,3 +167,11 @@ class ServingPipeline:
                 yield self.drain()
         while self._inflight:
             yield self.drain()
+
+
+def _grouped(gallery: PackedGallery) -> PackedGallery:
+    if gallery.gallery_grouped is None:
+        raise ValueError(
+            "gallery has no grouped layout (over-capacity galleries serve "
+            "through PackedGallery.topk's slab engine)")
+    return gallery

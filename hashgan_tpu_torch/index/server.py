@@ -15,10 +15,10 @@ Endpoints (all JSON):
   POST /remove             {"ids": [...]} -> {"n": ..., "id_map": [...]}
                            (ids re-pack contiguously; id_map[new] = old.)
 
-Malformed requests, and requests the port does not cover yet (``k > 256``,
-``mode="approx"``), answer HTTP 400 with the message. Requests run under
-one lock: they serialize on the device anyway, and the lock keeps gallery
-swaps atomic.
+Every k and both modes are answered by ``PackedGallery.topk``'s engines.
+Malformed requests answer HTTP 400 with the message. Requests run under one
+lock: they serialize on the device anyway, and the lock keeps gallery swaps
+atomic.
 """
 
 from __future__ import annotations

@@ -46,8 +46,15 @@ SIGNATURES: Dict[str, list] = {
     "mxu_fullkey_scan": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
                          _INT, _PTR],
     "fused_rescan": [_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
-                     _INT, _INT, _PTR],
+                     _INT, _INT, _INT, _INT, _PTR],
     "hamming": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _I64, _PTR],
+    "subgroupmin_scan": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
+                         _INT, _INT, _INT, _PTR],
+    "groupmin_scan": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR],
+    "groupmin_min2": [_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
+                      _INT, _PTR],
+    "pm_groupmin_scan": [_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
+                         _INT, _INT, _PTR],
 }
 
 
@@ -174,6 +181,19 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for name in KERNELS.launches:
         KERNELS.launches[name] = 0
+
+
+MAX_WORDS = 8  # the packed-word kernels are instantiated for 1..8 words
+
+
+def check_words(packed_q: torch.Tensor, words: int) -> None:
+    """Checks that the queries and the gallery have the same word count and
+    that a packed-word kernel is instantiated for it."""
+    if not 1 <= words <= MAX_WORDS:
+        raise ValueError(f"the kernels take 1..{MAX_WORDS} words, got {words}")
+    if packed_q.shape[1] != words:
+        raise ValueError(
+            f"queries have {packed_q.shape[1]} words, gallery {words}")
 
 
 def require_cuda_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,

@@ -10,7 +10,8 @@ every item is one row, so the kernel's loads along N are contiguous.
   tensors, the plain version for CPU tensors. It takes a column slice of a
   larger scan-layout gallery as it is (the row stride is passed through).
 - ``hamming_distance``: the same on a canonical (N, W) gallery.
-- ``hamming_scan_topk``: exact streaming top-k over gallery slabs.
+- ``hamming_scan_topk``: streaming top-k over gallery slabs (exact;
+  ``mode="approx"`` is exact here too, see its docstring).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import Optional, Tuple
 import torch
 
 from hashgan_tpu_torch.ops import _build
+from hashgan_tpu_torch.ops.mxu_scan import check_mode
 from hashgan_tpu_torch.ops.pack import popcount32
 
 MAX_QUERIES = 65535 * 32  # the kernel's grid: 32 queries per block row
@@ -86,6 +88,7 @@ def hamming_distance(packed_q: torch.Tensor,
 def hamming_scan_topk(packed_q: torch.Tensor, gallery_t: torch.Tensor,
                       k: int = 100, slab: int = 1 << 17,
                       valid_n: Optional[int] = None, mode: str = "exact",
+                      recall_target: float = 0.95,
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Streaming top-k of (Q, W) queries over a (W, N) scan-layout gallery:
     (distances (Q, k) int32 ascending, indices (Q, k) int32).
@@ -103,12 +106,14 @@ def hamming_scan_topk(packed_q: torch.Tensor, gallery_t: torch.Tensor,
     a result, and the key cannot overflow at any gallery size (the
     reference falls back to a distance-only merge past int32). Columns that
     pad the last slab are never scanned: their keys would sort after the
-    k initial (sentinel, N) entries. ``mode="approx"`` (the reference's
-    ``lax.approx_min_k`` selection) is not ported."""
-    if mode != "exact":
-        raise NotImplementedError(
-            f"mode={mode!r} (approx top-k selection) is not ported yet "
-            "(ROADMAP.md)")
+    k initial (sentinel, N) entries.
+
+    ``mode="approx"`` cuts each slab to its k best candidates before the
+    merge, where the reference selects them with ``lax.approx_min_k``. The
+    port's cut is exact, so the result is exact mode's (``recall_target`` is
+    met trivially and stays for parity); the reference's distances agree
+    row for row, its indices may differ among equal distances."""
+    check_mode(mode)
     q, w = packed_q.shape
     n = gallery_t.shape[1]
     valid_n = n if valid_n is None else int(valid_n)
@@ -124,6 +129,8 @@ def hamming_scan_topk(packed_q: torch.Tensor, gallery_t: torch.Tensor,
         d = hamming_distance_t(packed_q, gallery_t[:, lo:hi]).to(torch.int64)
         idx = torch.arange(lo, hi, dtype=torch.int64, device=dev)
         key = torch.where(idx < valid_n, d, sentinel) * stride + idx
+        if mode == "approx":
+            key, _ = torch.topk(key, min(k, hi - lo), dim=1, largest=False)
         best, _ = torch.topk(torch.cat([best, key], dim=1), k, dim=1,
                              largest=False, sorted=True)
     return ((best // stride).to(torch.int32),

@@ -1,8 +1,12 @@
-"""Exact Hamming top-k: full-key scan + winner-column rescan.
+"""Hamming top-k by column minima: full-key scan, winner-column rescan, the
+approx mode and the +-1 (pm8) scan copy.
 
-Port of the exact branch of ``hashgan_tpu/ops/mxu_scan.py::mxu_topk``. The
-algorithm is the reference's; only the distance arithmetic changes with the
-hardware (XOR + popcount on the packed words instead of a +-1 matmul).
+Port of ``hashgan_tpu/ops/mxu_scan.py``. The algorithms are the reference's;
+only the distance arithmetic changes with the hardware (XOR + popcount on
+the packed words instead of a +-1 matmul, except for the pm8 copy, which is
++-1 by construction).
+
+Exact mode (``mxu_topk``, the k <= 256 engine):
 
 1. Scan (kernel ``csrc/mxu_fullkey_scan.cu``): for every (query, column)
    of the grouped (W, L, C) gallery, the smallest composite key
@@ -18,6 +22,20 @@ hardware (XOR + popcount on the packed words instead of a +-1 matmul).
 4. The k smallest rescan keys, decoded to (distance, index); padding
    sentinels decode to ``d = bits + 1`` and ``i = L * C``.
 
+With a pm8 copy the scan is ``mxu8_groupmin_scan`` (kernel
+``csrc/pm_groupmin_scan.cu``) and steps 2-4 run on the keys it gives.
+
+Approx mode: the column minima (``mxu_groupmin_scan``, kernel
+``csrc/groupmin_scan.cu``, or the pm8 scan) are the answer, without a
+rescan: an item hidden behind a better item of its own column is missed.
+The reference selects the m best minima with ``lax.approx_min_k``, which
+PyTorch lacks. The port takes the exact m best over the distinct keys
+``d * stride + s * C + c`` (ties of (d, s) go to the lower column, the
+index order), so its recall is the column-collision term alone and any
+``recall_target`` is met; the argument stays for parity. On the CPU, JAX's
+``approx_min_k`` also returns the exact minima: the distances agree row for
+row, the indices may differ among equal keys.
+
 Total order: (distance asc, database index asc) — the numpy oracle's.
 Each kernel has its plain PyTorch twin in this module; the wrappers use the
 plain version only for CPU tensors and launch the kernel (or raise) for
@@ -26,7 +44,8 @@ CUDA tensors.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import math
+from typing import Iterator, Optional, Tuple
 
 import torch
 
@@ -38,8 +57,17 @@ from hashgan_tpu_torch.ops.groupmin import (
 )
 from hashgan_tpu_torch.ops.pack import popcount32
 
-MAX_WORDS = 8  # the kernels are instantiated for 1..8 words (<= 256 bits)
 SUB_G = 16     # columns per subgroup minimum (reference: sub_g=16)
+MODES = ("exact", "approx")
+# Padding penalty of the float32 local keys d*L + s: layout-padding items
+# get +2**22, above every valid key (< (bits + 1) * L) and still exact in
+# float32 (reference ``mxu_scan.py:50``).
+PAD_PENALTY = 1 << 22
+
+
+def check_mode(mode: str) -> None:
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
 
 
 def to_group_major(packed: torch.Tensor, groups: int = 128,
@@ -64,6 +92,57 @@ def unpack_to_pm1(packed: torch.Tensor,
     return (bits * 2 - 1).to(dtype).reshape(q, w * 32)
 
 
+def unpack_to_pm8(packed: torch.Tensor) -> torch.Tensor:
+    """(Q, W) int32 words -> (Q, 32W) +-1 int8, in unpack_to_pm1's order."""
+    return unpack_to_pm1(packed, torch.int8)
+
+
+def _layout_index(L: int, cols: int, device) -> torch.Tensor:
+    """(L, cols) int32 item index s * cols + c."""
+    return (torch.arange(L, dtype=torch.int32, device=device)[:, None] * cols
+            + torch.arange(cols, dtype=torch.int32, device=device)[None, :])
+
+
+def build_key_base(L: int, cols: int, bits: int, valid_n: int,
+                   device=None) -> torch.Tensor:
+    """(L, cols) float32 key base of the +-1 scans: B*L/2 + s, +2**22 on
+    padding items (index >= valid_n)."""
+    idx = _layout_index(L, cols, device)
+    s = torch.arange(L, dtype=torch.float32, device=device)[:, None]
+    base = (bits * L) / 2.0 + s.expand(L, cols)
+    return torch.where(idx < valid_n, base, base + float(PAD_PENALTY))
+
+
+def build_key_base_i32(L: int, cols: int, bits: int, valid_n: int,
+                       device=None) -> torch.Tensor:
+    """int32 key base of the int8 scan: build_key_base's values as exact
+    integers."""
+    idx = _layout_index(L, cols, device)
+    s = torch.arange(L, dtype=torch.int32, device=device)[:, None]
+    base = (bits * L) // 2 + s.expand(L, cols)
+    return torch.where(idx < valid_n, base, base + PAD_PENALTY)
+
+
+def grouped_to_pm8(gallery_g: torch.Tensor, col_block: int = 128,
+                   dtype: torch.dtype = torch.int8) -> torch.Tensor:
+    """(W, L, C) packed grouped gallery -> (B, C//cb, L, cb) +-1 copy in the
+    block layout the pm8 scan reads (row b = bit 32w + i, as unpack_to_pm8
+    orders the query). 8x the packed bytes at int8: 134 MB for 1M x 128
+    bits. Built on the gallery's device, one word at a time."""
+    w, L, c = gallery_g.shape
+    if c % col_block:
+        raise ValueError(f"column count {c} is not a multiple of {col_block}")
+    nb = c // col_block
+    out = torch.empty((w * 32, nb, L, col_block), dtype=dtype,
+                      device=gallery_g.device)
+    shifts = torch.arange(32, dtype=torch.int32, device=gallery_g.device)
+    for wi in range(w):
+        bits = (gallery_g[wi][None] >> shifts[:, None, None]) & 1  # (32, L, C)
+        pm = (bits * 2 - 1).to(dtype).view(32, L, nb, col_block)
+        out[wi * 32:(wi + 1) * 32] = pm.permute(0, 2, 1, 3)
+    return out
+
+
 def check_key_space(bits: int, n_total: int) -> int:
     """The composite keys' int32 bound (reference ``mxu_scan.py:690``);
     returns ``stride``."""
@@ -71,41 +150,50 @@ def check_key_space(bits: int, n_total: int) -> int:
     if (bits + 1) * stride + n_total >= 2**31:
         raise ValueError(
             f"composite keys overflow int32 at {n_total} layout items x "
-            f"{bits} bits; galleries past groupmin_capacity_ok need the "
-            "slabbed engine, which is not ported yet (ROADMAP.md)"
+            f"{bits} bits; galleries past groupmin_capacity_ok take the "
+            "slabbed engine (ops/slab_scan.py)"
         )
     return stride
 
 
-def _check_kernel_args(packed_q: torch.Tensor, words: int) -> None:
-    if not 1 <= words <= MAX_WORDS:
-        raise ValueError(f"the kernels take 1..{MAX_WORDS} words, got {words}")
-    if packed_q.shape[1] != words:
-        raise ValueError(
-            f"queries have {packed_q.shape[1]} words, gallery {words}")
+def chunked_distances(packed_q: torch.Tensor, gallery_g: torch.Tensor,
+                      ) -> Iterator[Tuple[int, int, torch.Tensor]]:
+    """Yields (lo, hi, d) with d the (hi - lo, L, C) int32 Hamming distances
+    of queries lo..hi-1 to the grouped (W, L, C) gallery; chunked over
+    queries so the (chunk, W, L, C) XOR intermediate stays near 2**24
+    elements. The scans' plain twins reduce d."""
+    q = packed_q.shape[0]
+    w, L, c = gallery_g.shape
+    chunk = max(1, (1 << 24) // max(1, w * L * c))
+    for lo in range(0, q, chunk):
+        hi = min(lo + chunk, q)
+        x = gallery_g[None] ^ packed_q[lo:hi, :, None, None]   # (ch, W, L, C)
+        yield lo, hi, popcount32(x).sum(dim=1, dtype=torch.int32)
+
+
+def local_keys(d: torch.Tensor, valid_n: int) -> torch.Tensor:
+    """(ch, L, C) distances -> the TPU scans' local keys d*L + s, +2**22 on
+    padding items, as int32 (exact integers below 2**24)."""
+    _, L, c = d.shape
+    idx = _layout_index(L, c, d.device)
+    s = torch.arange(L, dtype=torch.int32, device=d.device)[:, None]
+    return d * L + torch.where(idx < valid_n, s, s + PAD_PENALTY)
 
 
 # --------------------------------------------------------------------------
-# 1. Full-key scan
+# 1. Full-key scan (kernel 2)
 # --------------------------------------------------------------------------
 
 def fullkey_scan_keys_torch(packed_q: torch.Tensor, gallery_g: torch.Tensor,
                             valid_n: int, stride: int) -> torch.Tensor:
     """Plain version of the scan kernel: (Q, W) x (W, L, C) -> (Q, C) int32
-    full composite keys. Chunked over queries so the (chunk, W, L, C)
-    XOR intermediate stays near 64 MB of int32."""
+    full composite keys."""
     q = packed_q.shape[0]
-    w, L, c = gallery_g.shape
-    dev = gallery_g.device
-    idx = (torch.arange(L, dtype=torch.int32, device=dev)[:, None] * c
-           + torch.arange(c, dtype=torch.int32, device=dev)[None, :])
+    _, L, c = gallery_g.shape
+    idx = _layout_index(L, c, gallery_g.device)
     valid = idx < valid_n
-    full = torch.empty((q, c), dtype=torch.int32, device=dev)
-    chunk = max(1, (1 << 24) // max(1, w * L * c))
-    for lo in range(0, q, chunk):
-        hi = min(lo + chunk, q)
-        x = gallery_g[None] ^ packed_q[lo:hi, :, None, None]   # (ch, W, L, C)
-        d = popcount32(x).sum(dim=1, dtype=torch.int32)        # (ch, L, C)
+    full = torch.empty((q, c), dtype=torch.int32, device=gallery_g.device)
+    for lo, hi, d in chunked_distances(packed_q, gallery_g):
         key = torch.where(valid, d * stride + idx, INT32_MAX)
         full[lo:hi] = key.amin(dim=1)
     return full
@@ -117,7 +205,7 @@ def fullkey_scan_keys(packed_q: torch.Tensor, gallery_g: torch.Tensor,
     full composite keys. CUDA tensors launch ``csrc/mxu_fullkey_scan.cu``;
     CPU tensors run ``fullkey_scan_keys_torch``."""
     w, L, c = gallery_g.shape
-    _check_kernel_args(packed_q, w)
+    _build.check_words(packed_q, w)
     if gallery_g.device.type == "cpu":
         return fullkey_scan_keys_torch(packed_q, gallery_g, valid_n, stride)
     if L > 65536:
@@ -156,64 +244,208 @@ def mxu_fullkey_scan(packed_q: torch.Tensor, gallery_g: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
-# 3. Winner-column rescan
+# Column-min scans of the approx and pm8 paths (kernels 6 and 8)
 # --------------------------------------------------------------------------
+
+def mxu_groupmin_scan_torch(packed_q: torch.Tensor, gallery_g: torch.Tensor,
+                            valid_n: int) -> torch.Tensor:
+    """Plain version of kernel 6: (Q, C) float32 column minima of the local
+    keys d*L + s (+2**22 on padding)."""
+    q = packed_q.shape[0]
+    c = gallery_g.shape[2]
+    out = torch.empty((q, c), dtype=torch.float32, device=gallery_g.device)
+    for lo, hi, d in chunked_distances(packed_q, gallery_g):
+        out[lo:hi] = local_keys(d, valid_n).amin(dim=1).to(torch.float32)
+    return out
+
+
+def mxu_groupmin_scan(packed_q: torch.Tensor, gallery_g: torch.Tensor,
+                      valid_n: int) -> torch.Tensor:
+    """(Q, W) packed queries x (W, L, C) grouped gallery -> (Q, C) float32
+    column-min keys d*L + s (+2**22 where the whole column is padding), the
+    reference's ``mxu_groupmin_scan`` output. It takes the packed queries
+    and ``valid_n`` where the TPU kernel takes +-1 queries and a key base.
+    CUDA tensors launch ``csrc/groupmin_scan.cu``; CPU tensors run
+    ``mxu_groupmin_scan_torch``."""
+    w, L, c = gallery_g.shape
+    _build.check_words(packed_q, w)
+    if (32 * w + 1) * L >= PAD_PENALTY:
+        raise ValueError(f"local keys d*L + s overflow 2**22 at L={L}")
+    if gallery_g.device.type == "cpu":
+        return mxu_groupmin_scan_torch(packed_q, gallery_g, valid_n)
+    if L > 65536:
+        raise ValueError(f"the scan kernel takes at most 65536 groups, got {L}")
+    _build.require_cuda_tensor(packed_q, "packed_q", torch.int32, 2)
+    _build.require_cuda_tensor(gallery_g, "gallery_g", torch.int32, 3)
+    q = packed_q.shape[0]
+    out = torch.empty((q, c), dtype=torch.float32, device=gallery_g.device)
+    if out.numel():
+        _build.KERNELS.launch(
+            "groupmin_scan", gallery_g.device, packed_q.data_ptr(),
+            gallery_g.data_ptr(), out.data_ptr(), q, w, L, c, int(valid_n))
+    return out
+
+
+def mxu8_groupmin_scan_torch(q_pm: torch.Tensor, gallery_pm: torch.Tensor,
+                             key_base: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel 8: min over s of base - (L/2) * q.g, with
+    int32 sums for int8 operands and float32 sums for bf16 ones. The
+    products are summed one bit at a time, over query chunks that keep the
+    (chunk, L*C) sums near 2**25 elements."""
+    b, nb, L, cb = gallery_pm.shape
+    c = nb * cb
+    int_path = gallery_pm.dtype == torch.int8
+    acc_t = torch.int32 if int_path else torch.float32
+    half_l = L // 2 if int_path else L / 2.0
+    g = gallery_pm.permute(0, 2, 1, 3).reshape(b, L * c).to(acc_t)
+    qv = q_pm.to(acc_t)
+    q = q_pm.shape[0]
+    out = torch.empty((q, c), dtype=acc_t, device=gallery_pm.device)
+    chunk = max(1, (1 << 25) // max(1, L * c))
+    for lo in range(0, q, chunk):
+        hi = min(lo + chunk, q)
+        dot = torch.zeros((hi - lo, L * c), dtype=acc_t, device=g.device)
+        for bit in range(b):
+            dot += qv[lo:hi, bit, None] * g[bit]
+        key = key_base[None] - dot.view(hi - lo, L, c) * half_l
+        out[lo:hi] = key.amin(dim=1)
+    return out
+
+
+def mxu8_groupmin_scan(q_pm: torch.Tensor, gallery_pm: torch.Tensor,
+                       key_base: torch.Tensor) -> torch.Tensor:
+    """(Q, B) +-1 queries x (B, C//cb, L, cb) +-1 gallery (grouped_to_pm8)
+    + (L, C) key base -> (Q, C) column-min keys: int32 for int8 operands
+    (key base from build_key_base_i32), float32 for bf16 ones
+    (build_key_base). CUDA tensors launch ``csrc/pm_groupmin_scan.cu``; CPU
+    tensors run ``mxu8_groupmin_scan_torch``."""
+    b, nb, L, cb = gallery_pm.shape
+    int_path = gallery_pm.dtype == torch.int8
+    if not int_path and gallery_pm.dtype != torch.bfloat16:
+        raise ValueError(f"the pm8 copy is int8 or bfloat16, got {gallery_pm.dtype}")
+    if q_pm.dim() != 2 or q_pm.shape[1] != b or q_pm.dtype != gallery_pm.dtype:
+        raise ValueError(f"queries must be (Q, {b}) {gallery_pm.dtype}, got "
+                         f"{tuple(q_pm.shape)} {q_pm.dtype}")
+    base_t = torch.int32 if int_path else torch.float32
+    if key_base.shape != (L, nb * cb) or key_base.dtype != base_t:
+        raise ValueError(f"key_base must be ({L}, {nb * cb}) {base_t}")
+    if gallery_pm.device.type == "cpu":
+        return mxu8_groupmin_scan_torch(q_pm, gallery_pm, key_base)
+    if b % 4 or cb % 4:
+        raise ValueError(f"the kernel takes B and cb multiples of 4, got {b}, {cb}")
+    _build.require_cuda_tensor(q_pm, "q_pm", gallery_pm.dtype, 2)
+    _build.require_cuda_tensor(gallery_pm, "gallery_pm", gallery_pm.dtype, 4)
+    _build.require_cuda_tensor(key_base, "key_base", base_t, 2)
+    q = q_pm.shape[0]
+    out = torch.empty((q, nb * cb), dtype=base_t, device=gallery_pm.device)
+    if out.numel():
+        _build.KERNELS.launch(
+            "pm_groupmin_scan", gallery_pm.device, q_pm.data_ptr(),
+            gallery_pm.data_ptr(), key_base.data_ptr(), out.data_ptr(), q, b,
+            nb, L, cb, int(int_path))
+    return out
+
+
+def pm8_column_block(c: int) -> int:
+    """Column block of a gallery's pm8 copy: the reference's 128, or the
+    largest divisor of C below it for the small test layouts."""
+    return math.gcd(c, 128)
+
+
+# --------------------------------------------------------------------------
+# 3. Winner rescan (kernel 3)
+# --------------------------------------------------------------------------
+
+def _rescan_rows(packed_q: torch.Tensor, canon_bg_flat: torch.Tensor,
+                 rows: torch.Tensor, sigma: int, stride: int, valid_n: int,
+                 pad_d: int) -> torch.Tensor:
+    """Plain version of the rescan kernel: exact keys of every item of the
+    winner rows. canon_bg_flat (C, L*W) cut into C*R rows of sigma items
+    (R = L / sigma; row col*R + j holds s = j*sigma + s' of column col);
+    rows (Q, M) row ids. Returns (Q, M*sigma) int32 keys d*stride + idx,
+    and where idx >= valid_n INT32_MAX (pad_d < 0) or pad_d*stride + idx."""
+    q, w = packed_q.shape
+    c = canon_bg_flat.shape[0]
+    L = canon_bg_flat.shape[1] // w
+    r_sub = L // sigma
+    m = rows.shape[1]
+    rows = rows.to(torch.int32)
+    taken = canon_bg_flat.reshape(c * r_sub, sigma * w)[rows.long()]
+    d = popcount32(taken.view(q, m, sigma, w) ^ packed_q[:, None, None, :]).sum(
+        dim=-1, dtype=torch.int32)                                # (Q, M, sigma)
+    s = ((rows % r_sub)[:, :, None] * sigma
+         + torch.arange(sigma, dtype=torch.int32, device=rows.device))
+    idx = s * c + (rows // r_sub)[:, :, None]
+    pad = (torch.full_like(idx, INT32_MAX) if pad_d < 0
+           else pad_d * stride + idx)
+    return torch.where(idx < valid_n, d * stride + idx, pad).reshape(q, m * sigma)
+
 
 def _rescan_winner_columns(packed_q: torch.Tensor, canon_bg_flat: torch.Tensor,
                            cols: torch.Tensor, stride: int,
                            valid_n: int) -> torch.Tensor:
-    """Plain version of the rescan kernel: exact keys of every item of the
+    """Plain version of the column rescan: exact keys of every item of the
     winner columns. canon_bg_flat (C, L*W); cols (Q, M) column ids in
     [0, C). Returns (Q, M*L) int32 keys, INT32_MAX where idx >= valid_n."""
-    q, w = packed_q.shape
-    c = canon_bg_flat.shape[0]
-    L = canon_bg_flat.shape[1] // w
-    m = cols.shape[1]
-    rows = canon_bg_flat[cols.long()].view(q, m, L, w)          # (Q, M, L, W)
-    d = popcount32(rows ^ packed_q[:, None, None, :]).sum(
-        dim=-1, dtype=torch.int32)                               # (Q, M, L)
-    s_ids = torch.arange(L, dtype=torch.int32, device=cols.device)
-    idx = s_ids[None, None, :] * c + cols[:, :, None].to(torch.int32)
-    key = torch.where(idx < valid_n, d * stride + idx, INT32_MAX)
-    return key.reshape(q, m * L)
+    L = canon_bg_flat.shape[1] // packed_q.shape[1]
+    return _rescan_rows(packed_q, canon_bg_flat, cols, L, stride, valid_n, -1)
 
 
 def fused_rescan_keys(packed_q: torch.Tensor, canon_bg_flat: torch.Tensor,
-                      cols: torch.Tensor, stride: int,
-                      valid_n: int) -> torch.Tensor:
-    """(Q, W) queries, (C, L*W) group-major rows, (Q, M) winner columns ->
-    (Q, M*L) int32 composite keys (INT32_MAX where idx >= valid_n).
+                      cols: torch.Tensor, stride: int, valid_n: int,
+                      sigma: Optional[int] = None, pad_d: int = -1,
+                      ) -> torch.Tensor:
+    """(Q, W) queries, (C, L*W) group-major rows, (Q, M) winner rows ->
+    (Q, M*sigma) int32 composite keys. By default sigma = L: the rows are
+    the winner columns and padding items get INT32_MAX (the reference's
+    ``fused_rescan_keys``). The large-k engine passes sigma = 16 and
+    pad_d = bits + 1 (the reference's ``_rescan_winner_subgroups``).
 
     CUDA tensors launch ``csrc/fused_rescan.cu``, which also does the row
     gather (the reference gathers with an XLA take before its kernel); CPU
-    tensors run ``_rescan_winner_columns``. L, C and W come from the shapes
-    (the reference passes them as static arguments)."""
-    if canon_bg_flat.device.type == "cpu":
-        return _rescan_winner_columns(packed_q, canon_bg_flat, cols, stride,
-                                      valid_n)
+    tensors run ``_rescan_rows``. L, C and W come from the shapes (the
+    reference passes them as static arguments)."""
     q, w = packed_q.shape
     c, lw = canon_bg_flat.shape
-    _check_kernel_args(packed_q, w)
     if lw % w:
         raise ValueError(f"row width {lw} is not a multiple of {w} words")
     L = lw // w
+    sigma = L if sigma is None else sigma
+    if L % sigma:
+        raise ValueError(f"L={L} is not a multiple of sigma={sigma}")
+    if canon_bg_flat.device.type == "cpu":
+        return _rescan_rows(packed_q, canon_bg_flat, cols, sigma, stride,
+                            valid_n, pad_d)
+    _build.check_words(packed_q, w)
     m = cols.shape[1]
     cols = cols.to(torch.int32).contiguous()
     _build.require_cuda_tensor(packed_q, "packed_q", torch.int32, 2)
     _build.require_cuda_tensor(canon_bg_flat, "canon_bg_flat", torch.int32, 2)
     _build.require_cuda_tensor(cols, "cols", torch.int32, 2)
-    out = torch.empty((q, m * L), dtype=torch.int32, device=cols.device)
+    out = torch.empty((q, m * sigma), dtype=torch.int32, device=cols.device)
     if out.numel():
         _build.KERNELS.launch(
             "fused_rescan", cols.device, packed_q.data_ptr(),
             canon_bg_flat.data_ptr(), cols.data_ptr(), out.data_ptr(), q, m,
-            w, L, c, int(valid_n), stride)
+            w, L, c, sigma, int(valid_n), stride, pad_d)
     return out
 
 
 # --------------------------------------------------------------------------
 # 2 + 4. Selection and decode
 # --------------------------------------------------------------------------
+
+def _full_column_keys(min1: torch.Tensor, L: int, c: int,
+                      stride: int) -> torch.Tensor:
+    """(Q, C) column-min local keys d*L + s (float32 or int32) -> (Q, C)
+    int32 full composite keys d*stride + s*C + col, DISTINCT for every
+    column holding a valid item; all-padding columns (key >= 2**22) map to
+    INT32_MAX. Computed in int64, so the padding lanes cannot overflow."""
+    key = min1.to(torch.int64)
+    cols = torch.arange(c, dtype=torch.int64, device=min1.device)
+    full = (key // L) * stride + (key % L) * c + cols
+    return torch.where(key >= PAD_PENALTY, INT32_MAX, full).to(torch.int32)
+
 
 def _twolevel_topk_min(keys: torch.Tensor, kk: int, g: int = SUB_G,
                        submins: Optional[torch.Tensor] = None,
@@ -239,16 +471,43 @@ def _twolevel_topk_min(keys: torch.Tensor, kk: int, g: int = SUB_G,
     return vals, pos
 
 
+def decode_keys(keys: torch.Tensor, stride: int, bits: int, n_total: int,
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Composite keys -> (distances, indices) int32; any key whose distance
+    part exceeds ``bits`` (INT32_MAX, (bits + 1) * stride + idx) is a
+    padding sentinel (bits + 1, n_total)."""
+    d = keys // stride
+    is_pad = d > bits
+    return (torch.where(is_pad, bits + 1, d).to(torch.int32),
+            torch.where(is_pad, n_total, keys % stride).to(torch.int32))
+
+
+def pad_sentinels(d: torch.Tensor, i: torch.Tensor, kk: int, bits: int,
+                  n_total: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Right-pads (Q, m) results to kk columns with (bits + 1, n_total)."""
+    extra = kk - d.shape[1]
+    if extra <= 0:
+        return d, i
+    return (torch.nn.functional.pad(d, (0, extra), value=bits + 1),
+            torch.nn.functional.pad(i, (0, extra), value=n_total))
+
+
 def mxu_topk(packed_q: torch.Tensor, gallery_g: torch.Tensor,
              canon_bg_flat: torch.Tensor, valid_n: int, k: int = 100,
+             mode: str = "exact", recall_target: float = 0.95,
+             gallery_pm8: Optional[torch.Tensor] = None,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-k of (Q, W) packed queries against a grouped gallery: the
-    reference's ``mxu_topk(mode="exact")``. Its approx mode rests on
-    ``lax.approx_min_k``, which has no PyTorch counterpart yet.
+    """Top-k of (Q, W) packed queries against a grouped gallery: the
+    reference's ``mxu_topk``.
 
     Returns (distances (Q, kk) int32, indices (Q, kk) int32) with
-    kk = min(k, L*C), oracle-bit-identical; entries with index >= valid_n
-    are padding sentinels (d = bits + 1)."""
+    kk = min(k, L*C); entries with index >= valid_n are padding sentinels
+    (d = bits + 1). ``mode="exact"``: oracle-bit-identical.
+    ``mode="approx"``: the m = min(kk, C) best column minima (module doc;
+    ``recall_target`` is met trivially). ``gallery_pm8``: the +-1 copy of
+    the gallery (``grouped_to_pm8``); the scan then reads it instead of the
+    packed words, with identical results."""
+    check_mode(mode)
     q, w = packed_q.shape
     _, L, c = gallery_g.shape
     n_total = L * c
@@ -257,11 +516,33 @@ def mxu_topk(packed_q: torch.Tensor, gallery_g: torch.Tensor,
     kk = min(k, n_total)
     m = min(kk, c)  # winner columns per query (capped by the column count)
 
-    full, sub = mxu_fullkey_scan(packed_q, gallery_g, valid_n, stride)
-    _, cols = _twolevel_topk_min(full, m, submins=sub)
+    if mode == "exact" and gallery_pm8 is None:
+        full, sub = mxu_fullkey_scan(packed_q, gallery_g, valid_n, stride)
+        _, cols = _twolevel_topk_min(full, m, submins=sub)
+        rescan = fused_rescan_keys(packed_q, canon_bg_flat, cols, stride,
+                                   valid_n)
+        final, _ = _twolevel_topk_min(rescan, kk)
+        return decode_keys(final, stride, bits, n_total)
+
+    if gallery_pm8 is not None:
+        dev = gallery_pm8.device
+        if gallery_pm8.dtype == torch.int8:
+            qv = unpack_to_pm8(packed_q)
+            kb = build_key_base_i32(L, c, bits, valid_n, dev)
+        else:
+            qv = unpack_to_pm1(packed_q, gallery_pm8.dtype)
+            kb = build_key_base(L, c, bits, valid_n, dev)
+        min1 = mxu8_groupmin_scan(qv, gallery_pm8, kb)
+    else:
+        min1 = mxu_groupmin_scan(packed_q, gallery_g, valid_n)
+    full = _full_column_keys(min1, L, c, stride)
+
+    if mode == "approx":
+        keys, _ = torch.topk(full, m, dim=1, largest=False)
+        d, i = decode_keys(keys, stride, bits, n_total)
+        return pad_sentinels(d, i, kk, bits, n_total)
+
+    _, cols = _twolevel_topk_min(full, m)
     rescan = fused_rescan_keys(packed_q, canon_bg_flat, cols, stride, valid_n)
     final, _ = _twolevel_topk_min(rescan, kk)
-    is_pad = final == INT32_MAX
-    d = torch.where(is_pad, bits + 1, final // stride).to(torch.int32)
-    i = torch.where(is_pad, n_total, final % stride).to(torch.int32)
-    return d, i
+    return decode_keys(final, stride, bits, n_total)

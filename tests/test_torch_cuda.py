@@ -14,7 +14,10 @@ import torch
 from hashgan_tpu_torch.index.gallery import build_gallery_from_packed_device
 from hashgan_tpu_torch.models.encoders import SmallCNNEncoder
 from hashgan_tpu_torch.ops import _build
+from hashgan_tpu_torch.ops import groupmin as gm
+from hashgan_tpu_torch.ops import mxu_large_k as lk
 from hashgan_tpu_torch.ops import mxu_scan as ms
+from hashgan_tpu_torch.ops import slab_scan as sl
 from hashgan_tpu_torch.ops.hamming import (
     hamming_distance_t,
     hamming_distance_torch,
@@ -92,6 +95,137 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         ms.fused_rescan_keys(q, gal.canon_bg.t().contiguous().t(),
                              torch.zeros((7, 2), dtype=torch.int32, device=dev),
                              L * c + 1, 100)
+
+
+def _counted(name, fn):
+    """fn() with the launch count of kernel ``name`` checked to rise by 1."""
+    before = _build.launch_counts()[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert _build.launch_counts()[name] == before + 1
+    return out
+
+
+@pytest.mark.parametrize("bits", [32, 64, 96, 128, 160, 192, 224, 256])
+@pytest.mark.parametrize("n,groups", [(700, 8), (10, 8), (3000, 16)])
+def test_grouped_scan_kernels_5_to_7_match_plain(dev, bits, n, groups):
+    """Kernels 5 (subgroup keys, sigma 2 and L), 6 (float32 column minima)
+    and 7 (min and min2) and the rescan at sigma < L, W = 1..8, with
+    padding items and all-padding columns."""
+    gal, q = _gallery(dev, n, bits, seed=bits * 3 + n, groups=groups)
+    gg, bg = gal.gallery_grouped, gal.canon_bg
+    _, L, c = gg.shape
+    stride = L * c + 1
+    for valid_n in (n, L * c):
+        for sigma in (2, L):
+            got = _counted("subgroupmin_scan", lambda: lk.mxu_subgroupmin_scan(
+                q, gg, valid_n, stride, sigma))
+            assert torch.equal(got, lk.subgroupmin_scan_keys_torch(
+                q, gg, valid_n, stride, sigma))
+            rows = torch.randint(0, c * (L // sigma), (q.shape[0], 9),
+                                 device=dev, dtype=torch.int32)
+            got = _counted("fused_rescan", lambda: ms.fused_rescan_keys(
+                q, bg, rows, stride, valid_n, sigma=sigma, pad_d=bits + 1))
+            assert torch.equal(got, ms._rescan_rows(
+                q, bg, rows, sigma, stride, valid_n, bits + 1))
+        got = _counted("groupmin_scan",
+                       lambda: ms.mxu_groupmin_scan(q, gg, valid_n))
+        assert torch.equal(got, ms.mxu_groupmin_scan_torch(q, gg, valid_n))
+        got = _counted("groupmin_min2",
+                       lambda: gm.groupmin_scan(q, gg, valid_n))
+        want = gm.groupmin_scan_torch(q, gg, valid_n)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("bits", [32, 64, 96, 128, 160, 192, 224, 256])
+@pytest.mark.parametrize("n,groups", [(700, 8), (3000, 16)])
+def test_pm8_kernel_matches_plain(dev, bits, n, groups, dtype):
+    """Kernel 8 on int8 (int32 keys) and bf16 (float32 keys) copies."""
+    gal, q = _gallery(dev, n, bits, seed=bits + n, groups=groups)
+    gg = gal.gallery_grouped
+    _, L, c = gg.shape
+    gpm = ms.grouped_to_pm8(gg, ms.pm8_column_block(c), dtype=dtype)
+    if dtype == torch.int8:
+        qv, kb = ms.unpack_to_pm8(q), ms.build_key_base_i32(L, c, bits, n, dev)
+    else:
+        qv, kb = ms.unpack_to_pm1(q, dtype), ms.build_key_base(L, c, bits, n, dev)
+    got = _counted("pm_groupmin_scan",
+                   lambda: ms.mxu8_groupmin_scan(qv, gpm, kb))
+    assert torch.equal(got, ms.mxu8_groupmin_scan_torch(qv, gpm, kb))
+
+
+@pytest.mark.parametrize("bits,n", [(32, 3000), (128, 1500)])
+def test_engines_on_gpu_equal_engines_on_cpu(dev, bits, n):
+    """Large-k (every select), approx, pm8, repair and slabbed engines: the
+    card's answers are the CPU's (plain twins) bit for bit."""
+    gal, q = _gallery(dev, n, bits, seed=n + bits)
+    gg, bg = gal.gallery_grouped, gal.canon_bg
+    cpu = [t.cpu() for t in (q, gg, bg)]
+    runs = [(lk.mxu_topk_large, {"k": 700, "select": s, "sigma": 2})
+            for s in lk.SELECTS]
+    runs += [(lk.mxu_topk_large, {"k": 700, "sigma": 2, "mode": "approx"}),
+             (ms.mxu_topk, {"k": 50, "mode": "approx"}),
+             (gm.groupmin_topk, {"k": 30, "repair": 4})]
+    for fn, kw in runs:
+        got = fn(q, gg, bg, n, **kw)
+        want = fn(*cpu, n, **kw)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want)), (fn, kw)
+    for dtype in (torch.int8, torch.bfloat16):
+        gpm = ms.grouped_to_pm8(gg, 16, dtype=dtype)
+        for mode in ("exact", "approx"):
+            got = ms.mxu_topk(q, gg, bg, n, k=50, mode=mode, gallery_pm8=gpm)
+            want = ms.mxu_topk(*cpu, n, k=50, mode=mode, gallery_pm8=gpm.cpu())
+            assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    packed = gal.packed_canonical[:n]
+    layout = sl.build_slabbed_layout(packed, 8, 16, slab_items=512)
+    layout_cpu = sl.build_slabbed_layout(packed.cpu(), 8, 16, slab_items=512)
+    for k in (40, 600):
+        got = sl.mxu_topk_slabbed(q, *layout[:3], n=n, slab_items=512, k=k)
+        want = sl.mxu_topk_slabbed(q.cpu(), *layout_cpu[:3], n=n,
+                                   slab_items=512, k=k)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("k", [10, 300])
+def test_pipeline_results_survive_later_batches(dev, k):
+    """ServingPipeline hands out views of pinned buffers: every kept result
+    still equals the engine's answer after later batches, whose buffers the
+    caching host allocator may take from results already dropped."""
+    from hashgan_tpu_torch.index import QueryEngine, ServingPipeline
+
+    set_numerics()
+    gal, _ = _gallery(dev, 3000, 32, seed=5)
+    engine = QueryEngine(SmallCNNEncoder(
+        bits=32, dim=8, device=dev, generator=torch.Generator().manual_seed(0)),
+        gal)
+    rng = np.random.default_rng(k)
+    batches = [rng.integers(0, 256, (8, 32, 32, 3), dtype=np.uint8)
+               for _ in range(6)]
+    pipe = ServingPipeline(engine, k=k, depth=2)
+    for _ in pipe.map_batches(batches):  # dropped: their pairs go back
+        pass
+    kept = list(pipe.map_batches(batches))
+    for _ in pipe.map_batches(batches[::-1]):
+        pass
+    for b, r in zip(batches, kept):
+        want = engine.query_images(b, k=k)
+        assert np.array_equal(r.indices, want.indices)
+        assert np.array_equal(r.distances, want.distances)
+
+
+def test_new_wrappers_reject_what_the_kernels_do_not_take(dev):
+    gal, q = _gallery(dev, 100, 32, seed=2)
+    gg = gal.gallery_grouped
+    with pytest.raises(ValueError, match="words"):
+        lk.mxu_subgroupmin_scan(q[:, :0], gg, 100, 1000)
+    with pytest.raises(ValueError, match="int32"):
+        gm.groupmin_scan(q.long(), gg, 100)
+    gpm = torch.ones((34, 1, 8, 16), dtype=torch.int8, device=dev)
+    kb = ms.build_key_base_i32(8, 16, 34, 100, dev)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        ms.mxu8_groupmin_scan(torch.ones((2, 34), dtype=torch.int8,
+                                         device=dev), gpm, kb)
 
 
 @pytest.mark.parametrize("w,q,n,off", [(1, 256, 5400, 0), (1, 33, 1025, 1),

@@ -1,7 +1,9 @@
 """Port of the packed gallery (hashgan_tpu_torch/index/gallery.py) against
 the JAX reference: layouts bit for bit equal to both JAX build functions,
-the same capacity gate, npz artifacts that load both ways, and the same
-extend / remove id semantics."""
+the same capacity gate, npz artifacts that load both ways, the same
+extend / remove id semantics, and answers on every single-device route."""
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,7 +13,7 @@ import torch
 from hashgan_tpu.index import gallery as jgal
 from hashgan_tpu.ops.groupmin import groupmin_capacity_ok as capacity_jax
 from hashgan_tpu.ops.groupmin import to_grouped_layout as grouped_jax
-from hashgan_tpu.ops.ref_numpy import pack_codes_np
+from hashgan_tpu.ops.ref_numpy import hamming_distance_np, pack_codes_np
 from hashgan_tpu_torch.index import gallery as tgal
 from hashgan_tpu_torch.ops.groupmin import (
     groupmin_capacity_ok,
@@ -105,21 +107,57 @@ def test_extend_and_remove_match_jax_id_semantics():
 
 
 def test_unsupported_requests_raise():
-    _, packed, labels = _packed(100, 32, seed=1)
-    gal = tgal.build_gallery_from_packed(packed, labels, 32, device="cpu")
-    pq = torch.zeros((2, 1), dtype=torch.int32)
-    for kwargs, frag in (({"k": 300}, "large-k"),
-                         ({"mode": "approx"}, "approx"),
-                         ({"repair": 4}, "repair")):
-        with pytest.raises(NotImplementedError, match=frag):
-            gal.topk(pq, **kwargs)
+    """Only a sharded gallery (``mesh``) is refused. The routes that earlier
+    slices refused answer: k past 256 (the large-k engine) and past
+    large_k_max (the sort engine), approx mode, an explicit repair and a
+    pm8 copy, each with the numpy oracle's lists in exact mode and true
+    (distance, id) pairs in approx mode."""
+    codes, packed, labels = _packed(3000, 32, seed=1)
     with pytest.raises(NotImplementedError, match="mesh"):
         tgal.build_gallery_from_packed(packed, labels, 32, device="cpu",
                                        mesh=object())
-    with pytest.raises(NotImplementedError, match="build_pm8"):
-        tgal.build_gallery(torch.zeros((4, 32)), labels[:4], 32,
-                           build_pm8=True)
-    huge = torch.zeros((1, 4), dtype=torch.int32).expand(8_000_000, 4)
-    assert not groupmin_capacity_ok(8_000_000, 4)
-    with pytest.raises(NotImplementedError, match="slabbed"):
-        tgal.build_gallery_from_packed_device(huge, np.zeros((0, 1)), 128)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        tgal.build_gallery(torch.from_numpy(codes), labels, 32, mesh=object())
+    gal = tgal.build_gallery_from_packed(packed, labels, 32, device="cpu")
+    pm8 = tgal.build_gallery(torch.from_numpy(codes), labels, 32,
+                             build_pm8=True)
+    assert gal.gallery_pm8 is None and pm8.gallery_pm8.dtype == torch.int8
+    pq = pack_codes_np(np.random.default_rng(2).standard_normal(
+        (3, 32)).astype(np.float32))
+    d_full = hamming_distance_np(pq, packed)
+    tq = torch.from_numpy(pq.view(np.int32))
+    for g, kwargs in ((gal, {"k": 300}), (gal, {"k": 1000, "large_k_max": 500}),
+                      (gal, {"k": 40, "repair": 4}), (pm8, {"k": 100})):
+        d, i = g.topk(tq, **kwargs)
+        order = np.argsort(d_full, axis=1, kind="stable")[:, :kwargs["k"]]
+        np.testing.assert_array_equal(i.numpy(), order)
+        np.testing.assert_array_equal(
+            d.numpy(), np.take_along_axis(d_full, order, axis=1))
+    for g, k in ((gal, 100), (gal, 300), (pm8, 100)):
+        # 3000 items fill 256 subgroups of 16: k = 300 ends in sentinels
+        d, i = g.topk(tq, k=k, mode="approx")
+        d, i = d.numpy(), i.numpy()
+        real = i < 3000
+        assert d.shape == (3, k) and real.sum(axis=1).min() == min(k, 256)
+        np.testing.assert_array_equal(
+            d[real], np.take_along_axis(d_full, np.where(real, i, 0), 1)[real])
+        assert (d[~real] == 33).all()
+
+
+def test_scan_layout_is_made_once_per_gallery():
+    """The sort engine's (W, N8) copy is the reference's gallery_t, made at
+    the first call and kept; a gallery rebuilt from this one makes its own."""
+    _, packed, labels = _packed(1001, 64, seed=4)
+    ref = jgal.build_gallery_from_packed(packed, labels, 64)
+    gal = tgal.build_gallery_from_packed(packed, labels, 64, device="cpu")
+    first = gal.scan_layout()
+    np.testing.assert_array_equal(_u32(first), np.asarray(ref.gallery_t))
+    assert gal.scan_layout() is first
+    q = torch.from_numpy(packed[:3].view(np.int32))
+    deep = gal.topk(q, k=900, large_k_max=500)
+    assert gal.scan_layout() is first
+    assert all(torch.equal(a, b) for a, b in zip(
+        deep, gal.topk(q, k=900, large_k_max=500)))
+    assert dataclasses.replace(gal).scan_layout() is not first
+    grown = gal.extend(np.ones((2, 64), np.float32), np.zeros((2, 5)))
+    assert grown.scan_layout().shape == (2, 1008)

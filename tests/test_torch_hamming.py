@@ -119,7 +119,19 @@ def test_scan_topk_heavy_ties_and_valid_n(force):
 
 
 def test_scan_topk_refuses_approx():
-    pq = _t(np.zeros((1, 1), np.uint32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        hamming_scan_topk(pq, _t(np.zeros((1, 8), np.uint32)), k=2,
-                          mode="approx")
+    """mode="approx" answers now: the port's per-slab cut is exact, so the
+    lists are exact mode's and the reference's approx distances agree row
+    for row; an unknown mode is refused."""
+    rng = np.random.default_rng(12)
+    pg, pq = _words(rng, 2000, 2), _words(rng, 4, 2)
+    d, i = hamming_scan_topk(_t(pq), _t(pg.T.copy()), k=40, slab=300,
+                             valid_n=1990, mode="approx")
+    de, ie = hamming_scan_topk(_t(pq), _t(pg.T.copy()), k=40, slab=300,
+                               valid_n=1990)
+    assert torch.equal(d, de) and torch.equal(i, ie)
+    dj, _ = scan_topk_jax(jnp.asarray(pq), jnp.asarray(pg.T.copy()), k=40,
+                          slab=300, valid_n=1990, mode="approx",
+                          use_pallas=False)
+    np.testing.assert_array_equal(d.numpy(), np.asarray(dj))
+    with pytest.raises(ValueError, match="mode"):
+        hamming_scan_topk(_t(pq), _t(pg.T.copy()), k=2, mode="fast")

@@ -162,18 +162,24 @@ def test_layout_helpers_match_jax():
 
 
 def test_key_space_bound_and_unsupported_modes():
+    """The int32 key bound points past it to the slabbed engine; the modes
+    and engines that PackedGallery.topk once refused now answer: approx
+    (true pairs), k = 300 and repair (the oracle's lists)."""
     assert port.check_key_space(128, 128 * 8192) == 128 * 8192 + 1
-    with pytest.raises(ValueError, match="overflow"):
+    with pytest.raises(ValueError, match="slabbed"):
         port.check_key_space(128, 128 * 131072)
-    # mxu_topk is exact only; its one caller, PackedGallery.topk, refuses
-    # the reference's other modes and engines.
+    with pytest.raises(ValueError, match="mode"):
+        port.check_mode("fast")
+    rng = np.random.default_rng(4)
+    packed = rng.integers(0, 2**32, (400, 1), dtype=np.uint32)
     gal = build_gallery_from_packed_device(
-        torch.zeros((5, 1), dtype=torch.int32), np.zeros((5, 1)), 32,
-        groups=8, col_multiple=16)
-    z = torch.zeros((1, 1), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="approx"):
-        gal.topk(z, k=3, mode="approx")
-    with pytest.raises(NotImplementedError, match="large-k"):
-        gal.topk(z, k=300)
-    with pytest.raises(NotImplementedError, match="repair"):
-        gal.topk(z, k=3, repair=2)
+        _t(packed), np.zeros((400, 1)), 32, groups=8, col_multiple=16)
+    z = _t(rng.integers(0, 2**32, (2, 1), dtype=np.uint32))
+    d_full = hamming_distance_np(z.numpy().view(np.uint32), packed)
+    for kwargs in ({"k": 3, "mode": "approx"}, {"k": 300}, {"k": 3, "repair": 2}):
+        d, i = gal.topk(z, **kwargs)
+        d, i = d.numpy(), i.numpy()
+        np.testing.assert_array_equal(d, np.take_along_axis(d_full, i, 1))
+        if "mode" not in kwargs:
+            od, oi = _oracle(z.numpy().view(np.uint32), packed, kwargs["k"])
+            np.testing.assert_array_equal(i, oi)

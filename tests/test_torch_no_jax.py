@@ -54,8 +54,10 @@ def test_port_imports_no_jax():
     out = _run(["-c", _PROBE], cwd=REPO, pythonpath=REPO)
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "hashgan_tpu_torch.index.server" in got["modules"]
-    assert len(got["modules"]) >= 20
+    for name in ("index.server", "ops.mxu_large_k", "ops.slab_scan",
+                 "ops.groupmin", "ops.mxu_scan"):
+        assert f"hashgan_tpu_torch.{name}" in got["modules"]
+    assert len(got["modules"]) >= 22
     assert got["jax"] == [], f"JAX modules imported by the port: {got['jax']}"
 
 

@@ -4,6 +4,7 @@ interpret mode) and through the port (plain versions on the CPU), and give
 the same neighbours at the same distances. Then the port's HTTP server
 answers on an ephemeral port as its engine does."""
 
+import dataclasses
 import json
 import threading
 import urllib.error
@@ -95,11 +96,34 @@ def test_query_engine_matches_jax_engine(engines):
 
 
 def test_pipeline_refuses_what_is_not_ported(engines):
-    _, port, _, batches = engines
-    with pytest.raises(NotImplementedError, match="large-k"):
-        ServingPipeline(port, k=300).submit(batches[0])
+    """k past 256 (the large-k engine) and approx mode are served as the
+    JAX pipeline serves them; what the reference's pipeline refuses (no
+    encoder, no grouped layout, an unknown mode) is refused here too."""
+    jax_engine, port, _, batches = engines
+    for k in (300, 1000):
+        want = JaxPipeline(jax_engine, k=k, interpret=True).map_batches(
+            batches[:1])
+        got = ServingPipeline(port, k=k).map_batches(batches[:1])
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.indices, w.indices)
+            np.testing.assert_array_equal(g.distances, w.distances)
+    for k in (10, 300):
+        want = next(JaxPipeline(jax_engine, k=k, mode="approx",
+                                interpret=True).map_batches(batches[:1]))
+        got = next(ServingPipeline(port, k=k, mode="approx").map_batches(
+            batches[:1]))
+        np.testing.assert_array_equal(got.distances, want.distances)
+        real = got.indices < N  # past the valid subgroups: sentinels
+        assert got.indices.shape == (8, k) and real[:, :10].all()
+        assert (got.distances[~real] == BITS + 1).all()
     with pytest.raises(ValueError, match="needs an encoder"):
         ServingPipeline(QueryEngine(None, port.gallery))
+    with pytest.raises(ValueError, match="mode"):
+        ServingPipeline(port, mode="fast")
+    ungrouped = dataclasses.replace(port.gallery, gallery_grouped=None,
+                                    canon_bg=None)
+    with pytest.raises(ValueError, match="grouped layout"):
+        ServingPipeline(QueryEngine(port.encoder, ungrouped))
 
 
 def _req(base, path, payload=None):
@@ -137,12 +161,18 @@ def test_http_server_answers_like_the_engine(engines):
         assert all(r[0] == 0 for r in out["distances"])
         out = _req(base, "/remove", {"ids": [N, N + 1]})
         assert out["n"] == N + 3 and out["id_map"][N:] == [N + 2, N + 3, N + 4]
+        for payload in ({"codes": codes[:2].tolist(), "k": 300},
+                        {"codes": codes[:2].tolist(), "mode": "approx"}):
+            out = _req(base, "/query", payload)
+            ref = engine.query_codes(codes[:2], k=payload.get("k", 100),
+                                     mode=payload.get("mode", "exact"))
+            np.testing.assert_array_equal(out["indices"], ref.indices)
+            np.testing.assert_array_equal(out["distances"], ref.distances)
+        assert len(out["indices"][0]) == 100
         for payload, frag in (
             ({"codes": [[1.0, 2.0]]}, "codes must be"),
             ({"k": 5}, "needs 'codes' or 'images'"),
             ({"codes": codes[:1].tolist(), "mode": "nope"}, "unknown mode"),
-            ({"codes": codes[:1].tolist(), "mode": "approx"}, "approx"),
-            ({"codes": codes[:1].tolist(), "k": 300}, "large-k"),
         ):
             with pytest.raises(urllib.error.HTTPError) as e:
                 _req(base, "/query", payload)
@@ -156,7 +186,7 @@ def test_http_server_answers_like_the_engine(engines):
         assert e.value.code == 404
         stats = _req(base, "/stats")
         assert stats["requests"]["/query"] == 8
-        assert stats["errors"]["/query"] == 5
+        assert stats["errors"]["/query"] == 3
     finally:
         server.shutdown()
         server.server_close()
