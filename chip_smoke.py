@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU: the serving path,
-every single-device search engine, and config1's stage-II training and
-evaluation.
+every single-device search engine, config1's stage-II training and
+evaluation, and the measurement path (the scan and serving benchmarks, the
+scan variants, the flagship ``entry()``, the AlexNet and ResNet encoders).
 
     python3 chip_smoke.py        (from the repository root; no arguments)
 
@@ -13,15 +14,20 @@ gallery, exact top-100, 256-query batches), then every other engine of
 past ``large_k_max``) and on a 17,000,000-item slabbed gallery, and the
 HTTP server, then trains the ``config1`` encoder (SmallCNN dim 64, 32
 bits, batch 64) for 500 steps on its 5,000-image split and evaluates it by
-Hamming ranking over the 54,000-image database, and checks every answer
-against plain witnesses and numpy oracles. Imports nothing of JAX and
-nothing of the JAX package ``hashgan_tpu``: the presets and the synthetic
-images come from the port.
+Hamming ranking over the 54,000-image database, then runs the benchmark
+path: ``bench_scan.run_bench`` at its headline shape (1,024 queries x
+1,048,576 items x 128 bits, k = 100), ``bench_serve``, the scan-variants
+script (kernel 2 against kernel 9, the tensor-core scan), ``entry()``
+(AlexNet 48 bits), and the config2 (AlexNet 48 bits) and config4 (ResNet 64
+bits) encoders answering a 256-image batch over a 1M gallery. Every answer
+is checked against plain witnesses and numpy oracles. Imports nothing of
+JAX and nothing of the JAX package ``hashgan_tpu``: the presets and the
+synthetic images come from the port.
 
-Each phase prints one line; then the card's name and power limit, the
-kernels as one JSON object, and as the last line
-``{"ok": true, "device": {...}}``. Any failure raises, so the script exits
-non-zero without that line — also when no GPU is visible.
+Each phase prints one line (the scan benchmark also its headline JSON);
+then the card's name and power limit, the kernels as one JSON object, and
+as the last line ``{"ok": true, "device": {...}}``. Any failure raises, so
+the script exits non-zero without that line — also when no GPU is visible.
 """
 
 from __future__ import annotations
@@ -43,6 +49,14 @@ import urllib.request
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
+# The int8 tensor-core rate, the bound of every Hamming-distance kernel:
+# defined once in the package (ImportError here, before any result, when
+# the package is not beside the script).
+from hashgan_tpu_torch.bench_scan import (  # noqa: E402
+    H100_INT8_OPS_PER_S as INT8_PER_S,
+)
+
 BATCH = 256
 N_BATCHES = 4
 N_ITEMS = 1 << 20  # config5's gallery: 1,048,576 items
@@ -93,18 +107,23 @@ KERNEL_INFO = {
                       "hashgan_tpu/ops/groupmin.py:97"),
     "pm_groupmin_scan": ("hashgan_tpu_torch/csrc/pm_groupmin_scan.cu",
                          "hashgan_tpu/ops/mxu_scan.py:142"),
+    "fullkey_scan_mma": ("hashgan_tpu_torch/csrc/fullkey_scan_mma.cu",
+                         "scripts/bench_scan_variants.py:46"),
 }
 SERVING_KERNELS = ("pack", "mxu_fullkey_scan", "fused_rescan")  # phase 4
-ENGINE_KERNELS = tuple(KERNEL_INFO)                             # phase 4b
+ENGINE_KERNELS = tuple(k for k in KERNEL_INFO
+                       if k != "fullkey_scan_mma")              # phase 4b
 STAGE2_KERNELS = ("pack", "hamming")                            # phase 7
+BENCH_KERNELS = ("mxu_fullkey_scan", "fused_rescan", "hamming",  # phase 8
+                 "subgroupmin_scan", "groupmin_scan", "groupmin_min2")
 LARGE_K = (1000, 5000)  # the large-k engine's k (MAP@5000 is the protocol's)
 N_SLABBED = 17_000_000  # past groupmin_capacity_ok: 2 slabs of 16,384,000
 # The card's rates for bound_ms (NVIDIA's H100 SXM data sheet, dense): HBM
-# bytes per second, float32 operations outside the tensor cores, and int8
-# tensor-core operations.
+# bytes per second and float32 operations outside the tensor cores (the
+# int8 tensor-core rate is imported above).
 HBM_BYTES_PER_S = 3.35e12
 FP32_PER_S = 67e12
-INT8_PER_S = 1979e12
+CONFIG_ENCODERS = ("config2", "config4")  # AlexNet 48 bits, ResNet 64 bits
 
 
 def check(cond: bool, what: str) -> None:
@@ -184,21 +203,12 @@ def pm1_matmul(torch, pq, canon):
     return (lambda: torch.matmul(a, b)), a.shape[1]
 
 
-def plain_exact_topk(torch, pq, canon, k: int, chunk: int = 16):
-    """Plain PyTorch exact top-k over (N, W) canonical words: every
-    distance, composite key d * N + idx (int64), one top-k."""
-    from hashgan_tpu_torch.ops.pack import popcount32
+def plain_exact_topk(torch, pq, canon, k: int):
+    """The plain witness (``ops/hamming.py::exact_topk_torch``: every
+    distance, one top-k of distinct composite keys) as numpy arrays."""
+    from hashgan_tpu_torch.ops.hamming import exact_topk_torch
 
-    n = canon.shape[0]
-    idx = torch.arange(n, device=canon.device)
-    ds, ids = [], []
-    for lo in range(0, pq.shape[0], chunk):
-        x = canon[None] ^ pq[lo:lo + chunk, None, :]
-        d = popcount32(x).sum(dim=2, dtype=torch.int64)
-        key, _ = torch.topk(d * n + idx, min(k, n), dim=1, largest=False)
-        ds.append(key // n)
-        ids.append(key % n)
-    return torch.cat(ds).cpu().numpy(), torch.cat(ids).cpu().numpy()
+    return tuple(t.cpu().numpy() for t in exact_topk_torch(pq, canon, k))
 
 
 def equal_lists(torch, got, want) -> bool:
@@ -647,11 +657,210 @@ def stage2(torch, cfg) -> dict:
     return counts
 
 
+def codes_agree(torch, card, cpu, tol: float) -> float:
+    """Max |card - cpu| of two code tensors; raises unless it is within
+    ``tol`` and the signs agree wherever |cpu code| clears ``tol``."""
+    card, cpu = card.float().cpu(), cpu.float().cpu()
+    err = (card - cpu).abs().max().item()
+    sure = cpu.abs() > tol
+    check(err <= tol and torch.equal((card > 0)[sure], (cpu > 0)[sure]),
+          f"card codes vs CPU: max |diff| {err} > {tol} or a sign differs")
+    return err
+
+
+def config_encoders(torch, dev) -> list:
+    """Phase 8, last part: the config2 (AlexNet 48 bits, 32x32) and config4
+    (ResNet 64 bits, 64x64) encoders at the presets' dtype, each encoding a
+    256-image batch and querying a 1,048,576-item gallery through
+    ``QueryEngine``; rankings held against the plain witness, the card's
+    codes against the same weights on the CPU (held against Flax by
+    tests/test_torch_alexnet.py: within 2**-6 of the largest |code|, the
+    same signs wherever |code| clears it). Returns one summary per preset."""
+    from hashgan_tpu_torch.configs import get_config
+    from hashgan_tpu_torch.data.synthetic import make_synthetic
+    from hashgan_tpu_torch.index import QueryEngine, build_gallery
+    from hashgan_tpu_torch.models.encoders import build_encoder, dtype_from_name
+    from hashgan_tpu_torch.ops import _build
+    from hashgan_tpu_torch.ops.pack import pack_codes
+    from hashgan_tpu_torch.train.hash_step import make_encode_fn
+
+    lines = []
+    for name in CONFIG_ENCODERS:
+        cfg = get_config(name)
+        enc_cfg, size = cfg.encoder, cfg.data.image_size
+
+        def model(device, cfg=cfg):
+            return build_encoder(
+                enc_cfg.arch, enc_cfg.bits,
+                dtype=dtype_from_name(enc_cfg.compute_dtype), device=device,
+                generator=torch.Generator().manual_seed(cfg.train.seed),
+                image_size=size)
+
+        gen = torch.Generator(device=dev).manual_seed(2)
+        gallery = build_gallery(
+            torch.randn(N_ITEMS, enc_cfg.bits, device=dev, generator=gen),
+            np.zeros((N_ITEMS, 1), np.float32), enc_cfg.bits)
+        engine = QueryEngine(model(dev), gallery, cfg=cfg)
+        images, _ = make_synthetic(BATCH, cfg.data.n_classes, size=size,
+                                   seed=cfg.data.seed + 1)
+        batch = images.images
+        # first-call set-up at the timed shape (cuDNN picks per shape)
+        engine.query_images(batch, k=cfg.index.topk)
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = engine.query_images(batch, k=cfg.index.topk)
+        lat_ms = (time.perf_counter() - t0) * 1e3
+        counts = _build.launch_counts()
+        check(all(counts[k] > 0 for k in SERVING_KERNELS),
+              f"{name}: the query path did not launch {SERVING_KERNELS}")
+        pq = pack_codes(engine.encode(batch))
+        check(equal_lists(torch, (res.distances, res.indices),
+                          plain_exact_topk(torch, pq,
+                                           gallery.packed_canonical[:N_ITEMS],
+                                           cfg.index.topk)),
+              f"{name}: top-{cfg.index.topk} != plain witness")
+        cpu_codes = make_encode_fn(model("cpu"), cfg)(batch[:4])
+        tol = 2.0 ** -6 * cpu_codes.abs().max().item()
+        err = codes_agree(torch, engine.encode(batch[:4]), cpu_codes, tol)
+        total, top = kernel_breakdown(
+            torch, lambda: engine.query_images(batch, k=cfg.index.topk))
+        lines.append(
+            f"{name} ({enc_cfg.arch} {enc_cfg.bits}-bit {enc_cfg.compute_dtype},"
+            f" {size}x{size}): {BATCH} images over {N_ITEMS} items == plain "
+            f"witness, query_images {lat_ms:.2f} ms (host clock), card vs CPU "
+            f"max |diff| {err:.3g} (tolerance {tol:.3g}), launches "
+            f"{ {k: counts[k] for k in SERVING_KERNELS} }; where the time "
+            f"goes: {total:.4f} device ms; "
+            + "; ".join(f"{k} {v:.4f}" for k, v in top))
+        del engine, gallery
+    return lines
+
+
+def measurement_path(torch, dev) -> dict:
+    """Phase 8: the benchmark path at full width, each part driven with the
+    launch counts set to 0 just before and read just after: the scan
+    benchmark (its headline printed as a JSON line; raises unless every
+    witness holds), the serving benchmark, the scan-variants script (the
+    run whose kernel-9 launches the kernels line reports), ``entry()`` (its
+    packed words against the same weights on the CPU), and the config2 and
+    config4 encoders. Returns the launch counts of the variants run."""
+    from hashgan_tpu_torch.bench_scan import HEADLINE_KEYS, run_bench
+    from hashgan_tpu_torch.bench_serve import run_serving_bench
+    from hashgan_tpu_torch.data.preprocess import to_encoder_input
+    from hashgan_tpu_torch.entry import entry
+    from hashgan_tpu_torch.models.encoders import build_encoder
+    from hashgan_tpu_torch.ops import _build
+    from hashgan_tpu_torch.ops.pack import unpack_codes
+    from scripts.bench_scan_variants_torch import main as scan_variants
+
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    bench = run_bench(device=dev)
+    bench_s = time.perf_counter() - t0
+    bench_counts = _build.launch_counts()
+    print(json.dumps({k: bench[k] for k in HEADLINE_KEYS}), flush=True)
+    detail = bench["detail"]
+    check(bench["verified"] and all(detail["witnesses"].values()),
+          f"run_bench witnesses: {detail['witnesses']}")
+    check(all(bench_counts[k] > 0 for k in BENCH_KERNELS),
+          f"run_bench did not launch {BENCH_KERNELS}: {bench_counts}")
+
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    serve = run_serving_bench(device=dev)
+    serve_s = time.perf_counter() - t0
+    serve_counts = _build.launch_counts()
+    check(serve["verified"] and serve["approx_recall"] >= 0.95,
+          f"bench_serve: verified {serve['verified']}, approx recall "
+          f"{serve['approx_recall']}")
+    check(all(serve_counts[k] > 0 for k in SERVING_KERNELS + ("groupmin_scan",)),
+          f"bench_serve did not launch the serving kernels: {serve_counts}")
+
+    _build.reset_launch_counts()
+    variants = scan_variants(device=dev)
+    variant_counts = _build.launch_counts()
+    check(variant_counts["fullkey_scan_mma"] > 0
+          and variant_counts["mxu_fullkey_scan"] > 0,
+          f"the variants bench did not launch kernels 2 and 9: {variant_counts}")
+    # the script raises unless both kernels equal the plain version on its
+    # probes; the second probe is the run's first full batch
+    held = variants["bf16dot"]["matches_plain_queries"]
+    check(held == variants["prod"]["matches_plain_queries"]
+          == [8, variants["queries"]],
+          f"the variants bench held the kernels against the plain version "
+          f"on {held} queries only")
+
+    fn, (params, images) = entry(dev)
+    _build.reset_launch_counts()
+    packed = fn(params, images)
+    torch.cuda.synchronize()
+    entry_counts = _build.launch_counts()
+    check(packed.shape == (8, 2) and packed.dtype == torch.int32
+          and entry_counts["pack"] == 1, f"entry(): {packed.shape}, "
+          f"{packed.dtype}, launches {entry_counts}")
+    _, (cpu_params, cpu_images) = entry("cpu")
+    check(all(torch.equal(params[k].cpu(), cpu_params[k]) for k in params)
+          and torch.equal(images.cpu(), cpu_images),
+          "entry(): weights or images differ between the card and the CPU")
+    enc = build_encoder("alexnet", 48, image_size=64).eval()
+    with torch.no_grad():
+        cpu_codes = torch.func.functional_call(
+            enc, cpu_params, (to_encoder_input(cpu_images),))
+    # float32 on both sides (TF32 off): the packed bits are the codes'
+    # signs, equal wherever |code| > 1e-4 (the CPU tests' float32 tolerance
+    # against Flax)
+    card_bits = unpack_codes(packed, 48).cpu() > 0
+    sure = cpu_codes.abs() > 1e-4
+    check(torch.equal(card_bits[sure], (cpu_codes > 0)[sure]),
+          "entry(): packed bits on the card != the CPU codes' signs")
+    entry_flips = int((card_bits != (cpu_codes > 0)).sum())
+    configs = config_encoders(torch, dev)
+
+    phases = detail["phase_ms"]
+    print(f"phase 8 measurement path: run_bench ({detail['queries']} x "
+          f"{detail['gallery']} x {detail['bits']}-bit, k={detail['k']}) in "
+          f"{bench_s:.1f} s: {bench['value']:.4g} cmp/s, {bench['tf_per_sec']:.4g}"
+          f" TOP/s, mfu {bench['mfu']:.4g}; mxu exact min / median "
+          f"{detail['seconds_mxu_exact_device'] * 1e3:.4f} / "
+          f"{detail['seconds_mxu_exact_device_median'] * 1e3:.4f} ms a batch "
+          f"(CUDA events), phases (ms) scan {phases['scan_ms']:.4f} select "
+          f"{phases['select_ms']:.4f} rescan {phases['rescan_ms']:.4f} merge "
+          f"{phases['merge_ms']:.4f}; unfused "
+          f"{detail['seconds_mxu_exact_unfused_device'] * 1e3:.4f} ms; approx "
+          f"{detail['seconds_mxu_approx_device'] * 1e3:.4f} ms; groupmin "
+          f"repair 8 {detail['seconds_groupmin_exact_device'] * 1e3:.4f} ms; "
+          f"large k={detail['k_large']} " + ", ".join(
+              f"{s} {v * 1e3:.4f}" for s, v in
+              detail["largek_seconds_by_select"].items())
+          + f" ms; single shot (host clock) mxu "
+          f"{detail['seconds_mxu_exact_singleshot'] * 1e3:.2f}, sort "
+          f"{detail['seconds_sort_exact_singleshot'] * 1e3:.2f}, sort approx "
+          f"{detail['seconds_approx_singleshot'] * 1e3:.2f} ms; 4M: exact "
+          f"{detail['scaling_4m']['seconds_exact'] * 1e3:.4f}, approx "
+          f"{detail['scaling_4m']['seconds_approx'] * 1e3:.4f} ms; witnesses "
+          f"{detail['witnesses']}; launches {bench_counts} | bench_serve "
+          f"({serve['bits']}-bit, {serve['gallery']} items, batch "
+          f"{serve['batch']}, k={serve['k']}) in {serve_s:.1f} s: "
+          + ", ".join(f"{key} {serve[key]:.1f}" for key in serve
+                      if key.startswith("qps_"))
+          + f" QPS; approx recall {serve['approx_recall']:.4f}; == plain "
+          f"witness | variants (ms a 1,024-query batch, min / median): "
+          + "; ".join(f"{v} {variants[v]['ms']:.4f} / "
+                      f"{variants[v]['ms_median']:.4f}"
+                      for v in ("prod", "bf16dot", "library"))
+          + f"; kernels 2 and 9 == plain on {held} queries; launches "
+          f"{variant_counts} | entry(): AlexNet 48-bit on 8 x "
+          f"64x64 -> {tuple(packed.shape)} words, bits == the CPU codes' "
+          f"signs where |code| > 1e-4 ({entry_flips} of {sure.numel()} bits "
+          f"differ in all) | " + " | ".join(configs), flush=True)
+    return variant_counts
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
 
-    sys.path.insert(0, REPO)
     from hashgan_tpu_torch.utils.device import require_cuda, set_numerics
 
     # ---- phase 1: the card --------------------------------------------
@@ -717,6 +926,7 @@ def main() -> None:
         unpack_to_pm1,
     )
     from hashgan_tpu_torch.ops.pack import pack_codes, pack_codes_torch
+    from hashgan_tpu_torch.ops.scan_variants import fullkey_scan_bf16
     from hashgan_tpu_torch.train.hash_step import encode_dataset, make_encode_fn
 
     # ---- phase 2: build -------------------------------------------------
@@ -773,6 +983,18 @@ def main() -> None:
         "library_ms": device_ms(torch, lib_scan, 5),
     }
     del lib_scan
+    # kernel 9, the tensor-core scan: kernel 2's function, its plain version
+    got9 = fullkey_scan_bf16(pq, gg, n, stride)
+    check(torch.equal(got9, want) and torch.equal(got9, full),
+          "tensor-core scan != plain / kernel 2 at 256 x 1M x 128")
+    stats["fullkey_scan_mma"] = {
+        **stats["mxu_fullkey_scan"],  # the same bound and library call
+        "max_abs_err": int((got9.long() - want.long()).abs().max()),
+        "ms": device_ms(torch, lambda: fullkey_scan_bf16(pq, gg, n, stride), 20),
+        "plain_ms": device_ms(
+            torch, lambda: fullkey_scan_keys_torch(pq, gg, n, stride), 1, 3),
+    }
+    del got9
     _, sub = mxu_fullkey_scan(pq, gg, n, stride)
     _, cols = _twolevel_topk_min(full, cfg.index.topk, submins=sub)
     res = fused_rescan_keys(pq, bg, cols, stride, n)
@@ -810,9 +1032,11 @@ def main() -> None:
         e_stride = check_key_space(32 * e_gg.shape[0], e_L * e_C)
         e_qc = erng.standard_normal((e_q, e_bits)).astype(np.float32)
         e_pq = pack_codes(torch.from_numpy(e_qc).to(dev))
-        check(torch.equal(fullkey_scan_keys(e_pq, e_gg, e_n, e_stride),
-                          fullkey_scan_keys_torch(e_pq, e_gg, e_n, e_stride)),
-              f"scan != plain at edge case {e_bits, e_n}")
+        e_plain = fullkey_scan_keys_torch(e_pq, e_gg, e_n, e_stride)
+        check(torch.equal(fullkey_scan_keys(e_pq, e_gg, e_n, e_stride), e_plain)
+              and torch.equal(fullkey_scan_bf16(e_pq, e_gg, e_n, e_stride),
+                              e_plain),
+              f"scan or tensor-core scan != plain at edge case {e_bits, e_n}")
         e_cols = torch.from_numpy(
             erng.integers(0, e_C, (e_q, min(e_k, e_C)), dtype=np.int32)).to(dev)
         check(torch.equal(
@@ -1011,11 +1235,7 @@ def main() -> None:
     cpu_codes = make_encode_fn(cpu_encoder, cfg)(batches[0][:16])
     card_codes = engine.encode(batches[0][:16]).cpu()
     enc_tol = 2.0 ** -6 * cpu_codes.abs().max().item()
-    enc_err = (card_codes - cpu_codes).abs().max().item()
-    sure = cpu_codes.abs() > enc_tol
-    check(enc_err <= enc_tol and torch.equal((card_codes > 0)[sure],
-                                             (cpu_codes > 0)[sure]),
-          f"card encoder vs CPU: max |diff| {enc_err} > {enc_tol}")
+    enc_err = codes_agree(torch, card_codes, cpu_codes, enc_tol)
 
     # submit must only enqueue: any host<->device synchronisation in it
     # raises under the "error" sync-debug mode.
@@ -1145,6 +1365,11 @@ def main() -> None:
     for name in ENGINE_KERNELS:  # kernels 5-8: the engines phase's run
         if name not in SERVING_KERNELS + STAGE2_KERNELS:
             launches[name] = engine_launches[name]
+
+    # ---- phase 8: the measurement path, entry() and config2 / config4 ----
+    # Kernel 9 runs on this path only: its launches are the variants run's.
+    launches["fullkey_scan_mma"] = measurement_path(torch, dev)[
+        "fullkey_scan_mma"]
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [

@@ -9,18 +9,22 @@ counterpart is easy to find:
                engines; each hand-written CUDA kernel (``csrc/*.cu``) sits
                beside its plain PyTorch version, which runs for tensors on
                the CPU.
-- ``models/``  the SmallCNN hash encoder and the Flax->torch weight converter.
+- ``models/``  the SmallCNN, AlexNet and ResNet hash encoders and the
+               Flax->torch weight converter.
 - ``losses/``, ``train/``  the WML pairwise loss, the encoder's optimiser
                and train step, and the stage-II ``Experiment``.
 - ``eval/``    MAP@R, P@H<=r, tie-aware histogram MAP and the numpy oracle.
 - ``index/``   the packed gallery, the query engine / serving pipeline and
                the HTTP server.
-- ``configs``, ``data/``, ``utils/``  the config1 / config5 presets, the
+- ``configs``, ``data/``, ``utils/``  the config1-5 presets, the
                synthetic splits, batching, preprocessing, checkpoints and
                metrics logging.
+- ``bench``, ``bench_scan``, ``bench_serve``, ``entry``  the scan and
+               serving benchmarks and the flagship inference entry point.
 
-It covers the serving path and stage-II training and evaluation without
-the GAN; see ROADMAP.md for what is left.
+It covers the serving path, every single-device search engine, stage-II
+training and evaluation without the GAN, and the measurement path; see
+ROADMAP.md for what is left.
 """
 
 __version__ = "0.1.0"

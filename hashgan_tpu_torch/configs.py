@@ -1,14 +1,15 @@
-"""Presets of the ported paths: the reference's ``config1``, ``config1_cal``
-and ``config5``, plus reference-style yaml overrides.
+"""Presets of the port: the reference's ``config1`` to ``config5`` and
+``config1_cal``, plus reference-style yaml overrides.
 
 The reference's typed config tree (``hashgan_tpu/configs/config.py``) also
 carries the GAN, mesh and list-file settings, which the port does not read
-yet. These dataclasses hold only what the port reads, under the reference's
-field names and with its defaults, so ``cfg.encoder.bits`` means the same in
-both packages and a reference ``Config`` may be passed wherever the port
-takes one. One default differs on purpose: ``train.workdir`` is
-``/tmp/hashgan_tpu_torch``, so torch checkpoints never land in the
-reference's checkpoint directory.
+yet: config2-4 keep ``use_gan=True``, and training them raises until the
+GAN slice is ported. These dataclasses hold only what the port reads, under
+the reference's field names and with its defaults, so ``cfg.encoder.bits``
+means the same in both packages and a reference ``Config`` may be passed
+wherever the port takes one. One default differs on purpose:
+``train.workdir`` is ``/tmp/hashgan_tpu_torch``, so torch checkpoints never
+land in the reference's checkpoint directory.
 """
 
 from __future__ import annotations
@@ -36,9 +37,9 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class EncoderConfig:
-    """The hash encoder and its optimiser; only ``small_cnn`` is ported."""
+    """The hash encoder and its optimiser."""
 
-    arch: str = "small_cnn"
+    arch: str = "small_cnn"           # small_cnn | alexnet | resnet
     bits: int = 32
     lr: float = 1e-3
     hash_lr_multiplier: float = 10.0  # applied after Adam (train/state.py)
@@ -116,6 +117,42 @@ def _cifar10_encoder_only_cal() -> Config:
         data=dataclasses.replace(cfg.data, n_classes=100))
 
 
+def _cifar10_gan() -> Config:
+    """``configs/config.py:226-235``: AlexNet, 48 bits, CIFAR-10 geometry,
+    MAP@5000, with the GAN."""
+    return Config(
+        name="cifar10_48bit_gan",
+        encoder=EncoderConfig(arch="alexnet", bits=48),
+        eval=EvalConfig(R=5000),
+    )
+
+
+def _nuswide_gan() -> Config:
+    """``configs/config.py:238-253``: AlexNet, 64 bits, 64x64 multi-label
+    images over 21 concepts, label-balanced pair sampling, MAP@5000, with
+    the GAN."""
+    return Config(
+        name="nuswide_64bit_gan",
+        data=DataConfig(name="nuswide", n_classes=21, multi_label=True,
+                        image_size=64, n_database=100_000, n_query=2100,
+                        n_train=10_500),
+        encoder=EncoderConfig(arch="alexnet", bits=64),
+        train=TrainConfig(pair_sampling="balanced"),
+        eval=EvalConfig(R=5000),
+    )
+
+
+def _imagenet100() -> Config:
+    """``configs/config.py:256-268``: ResNet, 64 bits, 64x64 images over 100
+    classes, MAP@1000, with the GAN."""
+    return Config(
+        name="imagenet100_64bit",
+        data=DataConfig(name="imagenet100", n_classes=100, image_size=64,
+                        n_database=100_000, n_query=5000, n_train=13_000),
+        encoder=EncoderConfig(arch="resnet", bits=64),
+    )
+
+
 def _synthetic_1m_scan() -> Config:
     """``configs/config.py:271-282``: SmallCNN, 128 bits, a 1M-item
     synthetic gallery, exact top-100."""
@@ -132,8 +169,14 @@ _PRESETS = {
     "cifar10_32bit_encoder_only": _cifar10_encoder_only,
     "cifar10_32bit_encoder_only_cal": _cifar10_encoder_only_cal,
     "synthetic_1m_128bit_scan": _synthetic_1m_scan,
+    "cifar10_48bit_gan": _cifar10_gan,
+    "nuswide_64bit_gan": _nuswide_gan,
+    "imagenet100_64bit": _imagenet100,
     "config1": _cifar10_encoder_only,
     "config1_cal": _cifar10_encoder_only_cal,
+    "config2": _cifar10_gan,
+    "config3": _nuswide_gan,
+    "config4": _imagenet100,
     "config5": _synthetic_1m_scan,
 }
 
@@ -143,9 +186,7 @@ def list_presets() -> Tuple[str, ...]:
 
 
 def get_config(name: str) -> Config:
-    """A preset by its reference name or alias. The presets of AlexNet and
-    ResNet encoders and of the GAN (config2-4) come with those modules
-    (ROADMAP.md)."""
+    """A preset by its reference name or alias."""
     if name not in _PRESETS:
         raise KeyError(f"unknown or unported preset {name!r}; options: "
                        f"{list(list_presets())}")

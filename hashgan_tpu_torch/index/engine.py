@@ -125,7 +125,10 @@ class ServingPipeline:
         self.depth = depth
         self._inflight: collections.deque = collections.deque()
 
-    def _step(self, images: torch.Tensor):
+    def step(self, images: torch.Tensor):
+        """One batch's encode -> pack -> top-k on uint8 ``images`` already on
+        the gallery's device: (distances, indices) left on the device,
+        enqueued on its stream with no host sync."""
         pq = pack_codes(self.engine.encode(images))
         gal = _grouped(self.engine.gallery)
         return grouped_topk(pq, gal.gallery_grouped, gal.canon_bg,
@@ -137,11 +140,11 @@ class ServingPipeline:
         device = self.engine.gallery.device
         host = torch.from_numpy(np.ascontiguousarray(images_u8))
         if device.type != "cuda":
-            d, i = self._step(host)
+            d, i = self.step(host)
             self._inflight.append((d.numpy(), i.numpy(), None))
             return
         images = host.pin_memory().to(device, non_blocking=True)
-        d, i = self._step(images)
+        d, i = self.step(images)
         d_host = torch.empty(d.shape, dtype=d.dtype, pin_memory=True)
         i_host = torch.empty(i.shape, dtype=i.dtype, pin_memory=True)
         d_host.copy_(d, non_blocking=True)

@@ -1,0 +1,150 @@
+"""AlexNet hash encoder and the bvlc_alexnet.npy weight loader (port of
+``hashgan_tpu/models/alexnet.py``).
+
+conv1 (11x11, stride 4, VALID) -> ReLU -> LRN -> max-pool -> conv2 (5x5,
+two groups) -> ReLU -> LRN -> max-pool -> conv3 -> conv4 (two groups) ->
+conv5 (two groups) -> max-pool -> fc6 -> fc7 (ReLU and dropout after each)
+-> float32 LayerNorm -> hash head. As in the reference:
+
+- conv2-5 use Flax's SAME padding; the pools are 3x3 stride-2 VALID and are
+  skipped where the map is under 3x3, so a 64x64 input reaches fc6 as
+  2 x 2 x 256 = 1,024 features and a 227x227 one as 6 x 6 x 256 = 9,216;
+- torch needs fc6's width at construction, so the module takes the input
+  side (``image_size``);
+- the conv5 map is flattened in NHWC order (h, w, c), as Flax flattens it,
+  so fc6's weight rows keep the reference's (and bvlc_alexnet.npy's) order;
+- ``embed_norm`` is Flax's LayerNorm, epsilon 1e-6, in float32;
+- dropout acts in train mode only, and its masks come from the
+  ``generator`` passed to ``forward`` (the train step passes its per-step
+  generator, so a step stays a pure function of its inputs): one seed is
+  drawn from it, and the masks are drawn on the input's device from a
+  generator seeded with it.
+
+``input_resize > 0`` (the reference's 227 protocol) is not ported and
+raises.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from hashgan_tpu_torch.models.encoders import HashHead, conv, init_like_flax
+from hashgan_tpu_torch.models.layers import local_response_norm
+
+
+def _pool_side(n: int) -> int:
+    """Side after ``_maxpool``: 3x3 stride-2 VALID, skipped under 3."""
+    return n if n < 3 else (n - 3) // 2 + 1
+
+
+def feature_side(image_size: int) -> int:
+    """Side of conv5's map (after its pool) for square inputs."""
+    n = _pool_side((image_size - 11) // 4 + 1)   # conv1, pool
+    return _pool_side(_pool_side(n))             # conv2, pool; conv3-5, pool
+
+
+def _maxpool(h: torch.Tensor) -> torch.Tensor:
+    if min(h.shape[2], h.shape[3]) < 3:
+        return h
+    return F.max_pool2d(h, 3, 2)
+
+
+class AlexNetEncoder(nn.Module):
+    def __init__(self, bits: int = 48, image_size: int = 227,
+                 dtype: torch.dtype = torch.float32, dropout_rate: float = 0.5,
+                 input_resize: int = 0, device: torch.device | str = "cpu",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if input_resize:
+            raise NotImplementedError(
+                "input_resize > 0 (the AlexNet 227 protocol) is not ported yet "
+                "(ROADMAP.md)")
+        if image_size < 11:
+            raise ValueError(f"AlexNet needs inputs of at least 11x11, got "
+                             f"{image_size}")
+        self.bits = bits
+        self.dtype = dtype
+        self.dropout_rate = dropout_rate
+        self.conv1 = nn.Conv2d(3, 96, 11, stride=4)
+        self.conv2 = nn.Conv2d(96, 256, 5, groups=2)
+        self.conv3 = nn.Conv2d(256, 384, 3)
+        self.conv4 = nn.Conv2d(384, 384, 3, groups=2)
+        self.conv5 = nn.Conv2d(384, 256, 3, groups=2)
+        self.fc6 = nn.Linear(feature_side(image_size) ** 2 * 256, 4096)
+        self.fc7 = nn.Linear(4096, 4096)
+        self.embed_norm = nn.LayerNorm(4096, eps=1e-6)
+        self.hash = HashHead(4096, bits)
+        init_like_flax(self, generator)
+        self.to(device)
+
+    def _dropout(self, h: torch.Tensor,
+                 masks: Optional[torch.Generator]) -> torch.Tensor:
+        if masks is None:
+            return h
+        keep_prob = 1.0 - self.dropout_rate
+        u = torch.rand(h.shape, device=h.device, generator=masks)
+        return torch.where(u < keep_prob, h / keep_prob, torch.zeros_like(h))
+
+    def _dense(self, h: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+        dt = self.dtype
+        return F.linear(h, layer.weight.to(dt), layer.bias.to(dt))
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, H, W, 3) mean-subtracted inputs -> (B, bits) float32 codes.
+        In train mode the dropout masks come from ``generator``, which is
+        then required."""
+        masks = None
+        if self.training and self.dropout_rate > 0.0:
+            if generator is None:
+                raise ValueError("AlexNet's dropout in train mode draws from "
+                                 "the step's generator: pass generator=")
+            seed = int(torch.randint(0, 1 << 62, (), generator=generator))
+            masks = torch.Generator(device=x.device).manual_seed(seed)
+        dt = self.dtype
+        h = x.to(dt).permute(0, 3, 1, 2)
+        h = F.relu(conv(h, self.conv1, dt, same=False))
+        h = _maxpool(local_response_norm(h, dim=1))
+        h = F.relu(conv(h, self.conv2, dt))
+        h = _maxpool(local_response_norm(h, dim=1))
+        for layer in (self.conv3, self.conv4, self.conv5):
+            h = F.relu(conv(h, layer, dt))
+        h = _maxpool(h)
+        h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)  # Flax's (h, w, c)
+        h = self._dropout(F.relu(self._dense(h, self.fc6)), masks)
+        h = self._dropout(F.relu(self._dense(h, self.fc7)), masks)
+        return self.hash(self.embed_norm(h.to(torch.float32)))
+
+
+_NPY_LAYERS = ("conv1", "conv2", "conv3", "conv4", "conv5", "fc6", "fc7")
+
+
+def load_bvlc_weights(state_dict: Dict[str, torch.Tensor],
+                      npy_path: str) -> Dict[str, torch.Tensor]:
+    """Copy bvlc_alexnet.npy weights into an AlexNetEncoder state dict.
+
+    The npy holds ``{layer: [W, b]}`` with conv W in HWIO and fc W as
+    (in, out), the reference's schema. Returns a new state dict; layers
+    whose shapes do not match (fc6 at inputs other than 227x227) keep their
+    values, as in the reference."""
+    if not os.path.exists(npy_path):
+        raise FileNotFoundError(npy_path)
+    blobs = np.load(npy_path, allow_pickle=True, encoding="latin1").item()
+    loaded = dict(state_dict)
+    for name in _NPY_LAYERS:
+        key_w, key_b = f"{name}.weight", f"{name}.bias"
+        if name not in blobs or key_w not in loaded:
+            continue
+        w = torch.from_numpy(np.array(blobs[name][0], dtype=np.float32))
+        b = torch.from_numpy(np.array(blobs[name][1], dtype=np.float32))
+        w = w.permute(3, 2, 0, 1) if w.dim() == 4 else w.t()
+        if w.shape == loaded[key_w].shape and b.shape == loaded[key_b].shape:
+            loaded[key_w] = w.contiguous().to(loaded[key_w].device)
+            loaded[key_b] = b.to(loaded[key_b].device)
+    return loaded

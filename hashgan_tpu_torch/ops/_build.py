@@ -55,6 +55,8 @@ SIGNATURES: Dict[str, list] = {
                       _INT, _PTR],
     "pm_groupmin_scan": [_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
                          _INT, _INT, _PTR],
+    "fullkey_scan_mma": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
+                         _INT, _PTR],
 }
 
 

@@ -42,6 +42,25 @@ def hamming_distance_torch(packed_q: torch.Tensor,
     return out
 
 
+def exact_topk_torch(packed_q: torch.Tensor, packed_g: torch.Tensor, k: int,
+                     chunk: int = 16) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain exact top-k of (Q, W) queries over a canonical (N, W) gallery:
+    every distance (``hamming_distance_torch``), the distinct int64 key
+    d * N + index, one ``torch.topk`` per ``chunk`` queries. Returns
+    (distances, indices) int32 in the numpy oracle's order. The benchmarks'
+    and the smoke's witness; no engine calls it."""
+    n = packed_g.shape[0]
+    idx = torch.arange(n, device=packed_g.device)
+    ds, ids = [], []
+    for lo in range(0, packed_q.shape[0], chunk):
+        d = hamming_distance_torch(packed_q[lo:lo + chunk], packed_g)
+        key, _ = torch.topk(d.to(torch.int64) * n + idx, min(k, n), dim=1,
+                            largest=False)
+        ds.append((key // n).to(torch.int32))
+        ids.append((key % n).to(torch.int32))
+    return torch.cat(ds), torch.cat(ids)
+
+
 def hamming_distance_t(packed_q: torch.Tensor,
                        gallery_t: torch.Tensor) -> torch.Tensor:
     """(Q, W) packed queries x (W, N) scan-layout gallery -> (Q, N) int32.

@@ -431,6 +431,18 @@ def fused_rescan_keys(packed_q: torch.Tensor, canon_bg_flat: torch.Tensor,
     return out
 
 
+def rescan_columns(packed_q: torch.Tensor, canon_bg_flat: torch.Tensor,
+                   cols: torch.Tensor, stride: int, valid_n: int,
+                   fused: bool = True) -> torch.Tensor:
+    """Stage 3 of the exact engine: (Q, M*L) int32 keys of every item of the
+    winner columns ``cols``, through the fused kernel (``fused_rescan_keys``)
+    or, with ``fused=False``, the plain gather + popcount (the reference's
+    ``rescan_fused=False`` arm). Identical results."""
+    if fused:
+        return fused_rescan_keys(packed_q, canon_bg_flat, cols, stride, valid_n)
+    return _rescan_winner_columns(packed_q, canon_bg_flat, cols, stride, valid_n)
+
+
 # --------------------------------------------------------------------------
 # 2 + 4. Selection and decode
 # --------------------------------------------------------------------------
@@ -471,6 +483,15 @@ def _twolevel_topk_min(keys: torch.Tensor, kk: int, g: int = SUB_G,
     return vals, pos
 
 
+def winner_columns(packed_q: torch.Tensor, gallery_g: torch.Tensor,
+                   valid_n: int, stride: int, m: int) -> torch.Tensor:
+    """Stages 1-2 of the exact engine: the full-key scan (kernel 2) and the
+    (Q, m) int64 ids of the m columns holding each query's best column
+    minima, the columns the rescan reads."""
+    full, sub = mxu_fullkey_scan(packed_q, gallery_g, valid_n, stride)
+    return _twolevel_topk_min(full, m, submins=sub)[1]
+
+
 def decode_keys(keys: torch.Tensor, stride: int, bits: int, n_total: int,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Composite keys -> (distances, indices) int32; any key whose distance
@@ -496,6 +517,7 @@ def mxu_topk(packed_q: torch.Tensor, gallery_g: torch.Tensor,
              canon_bg_flat: torch.Tensor, valid_n: int, k: int = 100,
              mode: str = "exact", recall_target: float = 0.95,
              gallery_pm8: Optional[torch.Tensor] = None,
+             rescan_fused: bool = True,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k of (Q, W) packed queries against a grouped gallery: the
     reference's ``mxu_topk``.
@@ -506,7 +528,8 @@ def mxu_topk(packed_q: torch.Tensor, gallery_g: torch.Tensor,
     ``mode="approx"``: the m = min(kk, C) best column minima (module doc;
     ``recall_target`` is met trivially). ``gallery_pm8``: the +-1 copy of
     the gallery (``grouped_to_pm8``); the scan then reads it instead of the
-    packed words, with identical results."""
+    packed words, with identical results. ``rescan_fused=False``: the exact
+    rescan runs the plain gather + popcount (``rescan_columns``)."""
     check_mode(mode)
     q, w = packed_q.shape
     _, L, c = gallery_g.shape
@@ -517,10 +540,9 @@ def mxu_topk(packed_q: torch.Tensor, gallery_g: torch.Tensor,
     m = min(kk, c)  # winner columns per query (capped by the column count)
 
     if mode == "exact" and gallery_pm8 is None:
-        full, sub = mxu_fullkey_scan(packed_q, gallery_g, valid_n, stride)
-        _, cols = _twolevel_topk_min(full, m, submins=sub)
-        rescan = fused_rescan_keys(packed_q, canon_bg_flat, cols, stride,
-                                   valid_n)
+        cols = winner_columns(packed_q, gallery_g, valid_n, stride, m)
+        rescan = rescan_columns(packed_q, canon_bg_flat, cols, stride, valid_n,
+                                fused=rescan_fused)
         final, _ = _twolevel_topk_min(rescan, kk)
         return decode_keys(final, stride, bits, n_total)
 
@@ -543,6 +565,7 @@ def mxu_topk(packed_q: torch.Tensor, gallery_g: torch.Tensor,
         return pad_sentinels(d, i, kk, bits, n_total)
 
     _, cols = _twolevel_topk_min(full, m)
-    rescan = fused_rescan_keys(packed_q, canon_bg_flat, cols, stride, valid_n)
+    rescan = rescan_columns(packed_q, canon_bg_flat, cols, stride, valid_n,
+                            fused=rescan_fused)
     final, _ = _twolevel_topk_min(rescan, kk)
     return decode_keys(final, stride, bits, n_total)

@@ -4,10 +4,11 @@
 A step is augment -> forward -> WML loss -> backward -> Adam update, all on
 the encoder's device; the uint8 batch is the only host->device traffic
 besides the flip (and crop) draws. The step's random draws come from
-``data/preprocess.py::step_generator(seed, step)``, so a step is a pure
-function of its inputs and a resumed run repeats it exactly. Training
-against GAN samples (stage II with ``use_gan``) and the AlexNet input
-geometry are not ported.
+``data/preprocess.py::step_generator(seed, step)``, which every encoder's
+forward also receives (AlexNet seeds its dropout masks from it), so a step
+is a pure function of its inputs and a resumed run repeats it exactly.
+Training against GAN samples (stage II with ``use_gan``) and the AlexNet
+input geometry are not ported.
 """
 
 from __future__ import annotations
@@ -41,16 +42,18 @@ def _check_ported(cfg) -> None:
 
 def encoder_loss_and_grad(encoder: nn.Module, x: torch.Tensor,
                           labels: torch.Tensor, cfg,
+                          generator: Optional[torch.Generator] = None,
                           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Forward the already-augmented encoder inputs ``x`` (mean-subtracted
     float32, NHWC) in train mode, take the WML loss of ``cfg.hash_loss``
     against ``labels``, and backpropagate: the gradients are left in the
-    parameters' ``.grad`` (set anew, not accumulated). Returns (loss,
+    parameters' ``.grad`` (set anew, not accumulated). ``generator`` is the
+    step's, for an encoder that draws (AlexNet's dropout). Returns (loss,
     metrics)."""
     hl = cfg.hash_loss
     encoder.train()
     encoder.zero_grad(set_to_none=True)
-    codes = encoder(x)
+    codes = encoder(x, generator=generator)
     loss, metrics = wml_pairwise_loss(
         codes, labels, alpha=hl.alpha, similarity=hl.similarity,
         class_balance=hl.class_balance,
@@ -79,7 +82,8 @@ def make_encoder_train_step(cfg) -> Callable:
         x = random_flip(gen, to_encoder_input(images_u8))
         if crop_pad > 0:
             x = random_crop(gen, x, pad=crop_pad)
-        _, metrics = encoder_loss_and_grad(state.module, x, labels, cfg)
+        _, metrics = encoder_loss_and_grad(state.module, x, labels, cfg,
+                                           generator=gen)
         state.optimizer.step()
         if state.scheduler is not None:
             state.scheduler.step()
@@ -97,7 +101,7 @@ def make_encode_fn(encoder: nn.Module, cfg=None) -> Callable:
     in the module.
 
     Only ``cfg.encoder.input_resize == 0`` (native-size inputs) is ported;
-    the AlexNet resize/crop protocol comes with the AlexNet encoder."""
+    the AlexNet resize/crop protocol (the 227 geometry) is not."""
     if cfg is not None and cfg.encoder.input_resize > 0:
         raise NotImplementedError(
             "input_resize > 0 (the AlexNet eval geometry) is not ported yet "

@@ -73,6 +73,7 @@ def create_encoder_state(cfg, device: torch.device | str) -> EncoderState:
     module = build_encoder(
         cfg.encoder.arch, cfg.encoder.bits,
         dtype=dtype_from_name(cfg.encoder.compute_dtype), device=device,
-        generator=torch.Generator().manual_seed(cfg.train.seed))
+        generator=torch.Generator().manual_seed(cfg.train.seed),
+        image_size=cfg.data.image_size, input_resize=cfg.encoder.input_resize)
     opt, sched = make_encoder_tx(module, cfg.encoder)
     return EncoderState(module=module, optimizer=opt, scheduler=sched)

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -21,6 +23,23 @@ def require_cuda(index: int = 0) -> torch.device:
         raise RuntimeError(f"CUDA device {index} does not exist; this "
                            f"process sees {torch.cuda.device_count()}")
     return torch.device("cuda", index)
+
+
+def describe_device(device: torch.device | str) -> dict:
+    """What a measurement ran on: ``platform`` ("gpu" or "cpu"), ``kind``
+    (the card's name) and, for a card, its power limit as ``nvidia-smi``
+    reads it (a card set below its maximum runs slower under load)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return {"platform": "cpu", "kind": "cpu", "power_limit": None}
+    index = device.index if device.index is not None else 0
+    smi = subprocess.run(
+        ["nvidia-smi", "-i", str(index), "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    return {"platform": "gpu", "kind": torch.cuda.get_device_name(index),
+            "power_limit": smi.rsplit(",", 1)[-1].strip()}
 
 
 def set_numerics() -> None:

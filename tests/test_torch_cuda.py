@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from hashgan_tpu_torch.index.gallery import build_gallery_from_packed_device
-from hashgan_tpu_torch.models.encoders import SmallCNNEncoder
+from hashgan_tpu_torch.models.encoders import SmallCNNEncoder, build_encoder
 from hashgan_tpu_torch.ops import _build
 from hashgan_tpu_torch.ops import groupmin as gm
 from hashgan_tpu_torch.ops import mxu_large_k as lk
@@ -24,6 +24,7 @@ from hashgan_tpu_torch.ops.hamming import (
     hamming_scan_topk,
 )
 from hashgan_tpu_torch.ops.pack import pack_codes, pack_codes_torch
+from hashgan_tpu_torch.ops.scan_variants import fullkey_scan_bf16
 from hashgan_tpu_torch.train.hash_step import make_encode_fn
 from hashgan_tpu_torch.utils.device import set_numerics
 
@@ -135,6 +136,43 @@ def test_grouped_scan_kernels_5_to_7_match_plain(dev, bits, n, groups):
                        lambda: gm.groupmin_scan(q, gg, valid_n))
         want = gm.groupmin_scan_torch(q, gg, valid_n)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("bits", [32, 64, 96, 128, 160, 192, 224, 256])
+@pytest.mark.parametrize("n,groups,nq", [(700, 8, 7), (10, 8, 300),
+                                         (3000, 16, 129), (5000, 64, 33)])
+def test_tensor_core_scan_matches_plain(dev, bits, n, groups, nq):
+    """Kernel 9 (mma.sync f16 scan) at W = 1..8: padding items, all-padding
+    columns (n = 10), a column count that is not a multiple of the block's
+    32 (C = 16), and query counts that leave whole warps and blocks idle;
+    identical to its plain version and to kernel 2."""
+    gal, _ = _gallery(dev, n, bits, seed=bits + 7 * n, groups=groups)
+    g = torch.Generator(device=dev).manual_seed(nq)
+    q = pack_codes(torch.randn(nq, bits, device=dev, generator=g))
+    q[0] = gal.packed_canonical[0]  # an exact hit: distance 0
+    gg = gal.gallery_grouped
+    _, L, c = gg.shape
+    stride = ms.check_key_space(bits, L * c)
+    for valid_n in (n, L * c, 0):
+        got = _counted("fullkey_scan_mma",
+                       lambda: fullkey_scan_bf16(q, gg, valid_n, stride))
+        assert torch.equal(got, ms.fullkey_scan_keys_torch(q, gg, valid_n,
+                                                           stride))
+        assert torch.equal(got, ms.fullkey_scan_keys(q, gg, valid_n, stride))
+
+
+def test_tensor_core_scan_ties_and_extremes(dev):
+    """Every item equal to the query (d = 0 everywhere: the lowest s wins),
+    every item its complement (d = B), and at W = 8 (|dot| = 256, the
+    accumulator's widest range)."""
+    for w in (1, 4, 8):
+        q = torch.full((5, w), 0x5A5A5A5A, dtype=torch.int32, device=dev)
+        for fill in (0x5A5A5A5A, ~0x5A5A5A5A):
+            gg = torch.full((w, 16, 96), fill, dtype=torch.int32, device=dev)
+            stride = 16 * 96 + 1
+            got = fullkey_scan_bf16(q, gg, 16 * 96 - 50, stride)
+            assert torch.equal(got, ms.fullkey_scan_keys_torch(
+                q, gg, 16 * 96 - 50, stride))
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
@@ -273,17 +311,18 @@ def test_hamming_wrapper_rejects_what_the_kernel_does_not_take(dev):
         hamming_distance_t(pq.long(), gt)
 
 
+@pytest.mark.parametrize("arch", ["small_cnn", "alexnet", "resnet"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_encoder_on_gpu_matches_cpu(dev, dtype):
+def test_encoder_on_gpu_matches_cpu(dev, dtype, arch):
     """The same weights on the card and on the CPU, where
-    tests/test_torch_encoder.py holds the port against Flax. Tolerance:
-    2**-6 of the largest |code| (four bfloat16 steps), and equal signs
-    wherever |code| clears it."""
+    tests/test_torch_encoder.py and tests/test_torch_alexnet.py hold the
+    port against Flax. Tolerance: 2**-6 of the largest |code| (four
+    bfloat16 steps), and equal signs wherever |code| clears it."""
     set_numerics()
     images = np.random.default_rng(0).integers(0, 256, (32, 32, 32, 3),
                                                dtype=np.uint8)
-    codes = [make_encode_fn(SmallCNNEncoder(
-        bits=128, dim=64, dtype=dtype, device=d,
+    codes = [make_encode_fn(build_encoder(
+        arch, 128, dtype=dtype, device=d, image_size=32,
         generator=torch.Generator().manual_seed(3)))(images).cpu()
         for d in ("cpu", dev)]
     tol = 2.0 ** -6 * codes[0].abs().max().item()

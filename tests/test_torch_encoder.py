@@ -163,9 +163,9 @@ def test_seeded_init_and_bfloat16_compute():
 
 
 def test_unported_archs_and_geometry_raise():
-    for arch in ("alexnet", "resnet"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_encoder(arch, 32)
+    # every reference arch is ported; the 227 input protocol is not
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_encoder("alexnet", 32, input_resize=227)
     with pytest.raises(ValueError, match="unknown encoder"):
         build_encoder("vgg", 32)
     cfg = get_config("config2")

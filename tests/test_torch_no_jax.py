@@ -1,6 +1,7 @@
 """The port imports no JAX, and its chip smoke refuses to run without a GPU.
 
-Every module of hashgan_tpu_torch, and chip_smoke.py, load in a fresh
+Every module of hashgan_tpu_torch, chip_smoke.py and the port's scan-variants
+script load in a fresh
 interpreter in which the JAX package ``hashgan_tpu`` cannot be imported,
 without jax, flax or optax entering sys.modules. Subprocesses are needed
 because this pytest process has imported jax already (tests/conftest.py).
@@ -37,6 +38,7 @@ names = ["hashgan_tpu_torch"] + [
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import scripts.bench_scan_variants_torch
 print(json.dumps({"modules": names, "jax": sorted(
     m for m in ("jax", "jaxlib", "flax", "optax") if m in sys.modules)}))
 """
@@ -55,13 +57,16 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("index.server", "ops.mxu_large_k", "ops.slab_scan",
-                 "ops.groupmin", "ops.mxu_scan"):
+                 "ops.groupmin", "ops.mxu_scan", "ops.scan_variants",
+                 "bench", "bench_scan", "bench_serve", "entry",
+                 "models.alexnet", "models.layers"):
         assert f"hashgan_tpu_torch.{name}" in got["modules"]
-    assert len(got["modules"]) >= 22
+    assert len(got["modules"]) >= 29
     assert got["jax"] == [], f"JAX modules imported by the port: {got['jax']}"
 
 
-@pytest.mark.parametrize("where", ["chip_smoke.py", "hashgan_tpu_torch"])
+@pytest.mark.parametrize("where", ["chip_smoke.py", "hashgan_tpu_torch",
+                                   "scripts/bench_scan_variants_torch.py"])
 def test_no_import_statement_reaches_jax(where):
     path = os.path.join(REPO, where)
     files = ([path] if path.endswith(".py") else
