@@ -119,10 +119,11 @@ BENCH_KERNELS = ("mxu_fullkey_scan", "fused_rescan", "hamming",  # phase 8
 LARGE_K = (1000, 5000)  # the large-k engine's k (MAP@5000 is the protocol's)
 N_SLABBED = 17_000_000  # past groupmin_capacity_ok: 2 slabs of 16,384,000
 # The card's rates for bound_ms (NVIDIA's H100 SXM data sheet, dense): HBM
-# bytes per second and float32 operations outside the tensor cores (the
-# int8 tensor-core rate is imported above).
+# bytes per second, float32 operations outside the tensor cores and bf16 on
+# them (the int8 tensor-core rate is imported above).
 HBM_BYTES_PER_S = 3.35e12
 FP32_PER_S = 67e12
+BF16_PER_S = 989e12
 CONFIG_ENCODERS = ("config2", "config4")  # AlexNet 48 bits, ResNet 64 bits
 
 
@@ -139,11 +140,29 @@ def bound(bytes_moved: float, ops: float, ops_per_s: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def ptxas_usage(log: str, kernel: str) -> dict:
+    """Registers and spill bytes of each instantiation ``kernel<W>`` from
+    the ``-Xptxas=-v`` build log: {W: (registers, spill stores, spill
+    loads)}. Read only when the library was compiled in this run."""
+    out, fn, spills = {}, None, None
+    for line in log.splitlines():
+        if "Function properties for " in line:
+            fn = line.split("Function properties for ")[1].strip()
+        elif "spill stores" in line and fn:
+            parts = line.split(",")
+            spills = tuple(int(p.split()[0]) for p in parts[1:3])
+        elif "Used " in line and fn and kernel in fn and spills:
+            w = int(fn.split(kernel + "ILi")[1].split("E")[0])
+            out[w] = (int(line.split("Used ")[1].split()[0]), *spills)
+            fn = spills = None
+    return out
+
+
 def distance_ops(pairs: int, bits: int) -> int:
     """Operations of ``pairs`` Hamming distances of ``bits`` bits, counted
     as the +-1 int8 product (a multiply and an add per bit), the card's
     fastest route to them. Every kernel that computes distances is bounded
-    so, against INT8_PER_S, whether it uses __popc, __dp4a or tensor
+    so, against INT8_PER_S, whether it uses __popc or tensor
     cores: one function, one bound."""
     return 2 * pairs * bits
 
@@ -255,9 +274,10 @@ def kernels_5_to_8(torch, pq, gg, bg, n, lib_ms):
     +-1 bf16 matmul over the same codes (kernel 2's yardstick: every
     distance these scans reduce). Kernel 8 reads the gallery's 134 MB int8
     pm8 copy, and its yardstick is ``torch._int_mm`` on the same operands
-    where that call takes them. Also holds the rescan kernel at sigma = 16
-    on the large-k engine's k = 1,000 winner rows. Returns (stats, the
-    sigma-16 rescan's device ms)."""
+    where that call takes them; it is also held and timed at 1,024 queries
+    and on the bf16 copy. Also holds the rescan kernel at sigma = 16 on the
+    large-k engine's k = 1,000 winner rows. Returns (stats, the sigma-16
+    rescan's device ms, kernel 8's times by query count and on bf16)."""
     from hashgan_tpu_torch.ops import groupmin as gm
     from hashgan_tpu_torch.ops import mxu_large_k as lk
     from hashgan_tpu_torch.ops import mxu_scan as ms
@@ -309,29 +329,54 @@ def kernels_5_to_8(torch, pq, gg, bg, n, lib_ms):
          lambda: gm.groupmin_scan_torch(pq, gg, n), packed_bytes,
          2 * full_bytes(q, c), ops, INT8_PER_S, lib_ms)
 
-    gpm = ms.grouped_to_pm8(gg, ms.pm8_column_block(c))  # 134 MB of int8
-    qv = ms.unpack_to_pm8(pq)
+    # kernel 8 on the int8 copy (134 MB), on the tensor cores: held and
+    # timed at the main path's 256 queries (the stats) and at the scan
+    # benchmark's 1,024, each beside torch._int_mm on the same operands
+    gpm = ms.grouped_to_pm8(gg, ms.pm8_column_block(c))
+    flat = gpm.view(32 * w, -1)
     kb = ms.build_key_base_i32(L, c, 32 * w, n, pq.device)
-    try:  # the yardstick only: the port never calls it
-        flat = gpm.view(32 * w, -1)
-        torch._int_mm(qv, flat)
-        lib8 = device_ms(torch, lambda: torch._int_mm(qv, flat), 5)
-    except RuntimeError as e:
-        print(f"torch._int_mm does not take the pm8 operands: {e}", flush=True)
-        lib8 = None
-    held("pm_groupmin_scan", lambda: ms.mxu8_groupmin_scan(qv, gpm, kb),
-         lambda: ms.mxu8_groupmin_scan_torch(qv, gpm, kb),
-         qv.numel() + gpm.numel() + kb.numel() * 4, full_bytes(q, c), ops,
-         INT8_PER_S, lib8)
-    del gpm
-    # the bf16 copy of the same gallery (float32 keys): held, not timed
+    pm8 = {}
+    q4 = torch.randint(-2**31, 2**31 - 1, (4 * q, w), dtype=torch.int32,
+                       device=pq.device,
+                       generator=torch.Generator(device=pq.device).manual_seed(5))
+    for qp in (pq, q4):
+        qv = ms.unpack_to_pm8(qp)
+        nq = qv.shape[0]
+        try:  # the yardstick only: the port never calls it
+            torch._int_mm(qv, flat)
+            lib8 = device_ms(torch, lambda: torch._int_mm(qv, flat), 5)
+        except RuntimeError as e:
+            print(f"torch._int_mm does not take the pm8 operands: {e}",
+                  flush=True)
+            lib8 = None
+        if nq == q:
+            held("pm_groupmin_scan", lambda: ms.mxu8_groupmin_scan(qv, gpm, kb),
+                 lambda: ms.mxu8_groupmin_scan_torch(qv, gpm, kb),
+                 qv.numel() + gpm.numel() + kb.numel() * 4, full_bytes(q, c),
+                 ops, INT8_PER_S, lib8)
+            pm8[nq] = dict(stats["pm_groupmin_scan"])
+            continue
+        check(torch.equal(ms.mxu8_groupmin_scan(qv, gpm, kb),
+                          ms.mxu8_groupmin_scan_torch(qv, gpm, kb)),
+              f"pm8 scan != plain at {nq} x {L * c} x {32 * w}")
+        pm8[nq] = {"ms": device_ms(torch, lambda: ms.mxu8_groupmin_scan(
+            qv, gpm, kb), 10), "library_ms": lib8, **bound(
+            qv.numel() + gpm.numel() + kb.numel() * 4 + full_bytes(nq, c),
+            distance_ops(nq * L * c, 32 * w), INT8_PER_S)}
+    del gpm, flat, q4
+    # the bf16 copy of the same gallery (float32 keys, CUDA cores): held and
+    # timed once
     gpm = ms.grouped_to_pm8(gg, ms.pm8_column_block(c), torch.bfloat16)
     qb = ms.unpack_to_pm1(pq)
     kbf = ms.build_key_base(L, c, 32 * w, n, pq.device)
     check(torch.equal(ms.mxu8_groupmin_scan(qb, gpm, kbf),
                       ms.mxu8_groupmin_scan_torch(qb, gpm, kbf)),
           "pm8 scan != plain on the bf16 copy")
-    return stats, sigma_ms
+    pm8["bf16"] = {"ms": device_ms(torch, lambda: ms.mxu8_groupmin_scan(
+        qb, gpm, kbf), 3), **bound(
+        qb.numel() * 2 + gpm.numel() * 2 + kbf.numel() * 4 + full_bytes(q, c),
+        distance_ops(q * L * c, 32 * w), BF16_PER_S)}
+    return stats, sigma_ms, pm8
 
 
 def full_bytes(rows: int, cols: int) -> int:
@@ -499,9 +544,12 @@ def engines(torch, engine, gallery, batches, gen) -> dict:
         total, top = kernel_breakdown(torch, fn)
         print(f"phase 4b where the time goes, {name}: {total:.4f} device ms; "
               + "; ".join(f"{k} {v:.4f}" for k, v in top), flush=True)
-    del big, big_t, words, pm8_gal
+    del big, big_t, words
 
-    timed = {"mxu_topk k=100": lambda: gallery.topk(pq, k=100)}
+    timed = {"mxu_topk k=100": lambda: gallery.topk(pq, k=100),
+             "pm8 exact k=100": lambda: pm8_gal.topk(pq, k=100),
+             "pm8 approx k=100": lambda: pm8_gal.topk(pq, k=100,
+                                                      mode="approx")}
     for k in LARGE_K:  # every select: the reference's default was a TPU pick
         for sel, cmp in selects:
             timed[f"large k={k} {sel}/{cmp}"] = (
@@ -514,6 +562,7 @@ def engines(torch, engine, gallery, batches, gen) -> dict:
         "repair=100 k=100": lambda: gallery.topk(pq, k=100, repair=100),
     })
     ms_per = {name: device_ms(torch, fn, 3, 3) for name, fn in timed.items()}
+    del pm8_gal
     # The pipeline's spread, in turns, by what the caller does with each
     # result: keeps it (as in the counted run: each batch takes a pinned
     # pair that no earlier result has freed), copies it out and drops the
@@ -937,9 +986,13 @@ def main() -> None:
             for line in lib.build_log.splitlines() if "Used " in line]
     nvcc = ("library reused from csrc/build" if lib.build_seconds is None
             else f"nvcc {lib.build_seconds:.2f} s")
+    k8 = ptxas_usage(lib.build_log, "pm_int8_mma_kernel")
     print(f"phase 2 build: {len(KERNEL_INFO)} kernels from "
           f"hashgan_tpu_torch/csrc in {build_s:.2f} s ({nvcc}; registers per "
-          f"instantiation: {', '.join(regs)})", flush=True)
+          f"instantiation: {', '.join(regs)}); kernel 8 int8 by words W "
+          "(registers, spill stores / loads bytes): "
+          + ", ".join(f"W={w} {r} {st}/{ld}" for w, (r, st, ld)
+                      in sorted(k8.items())), flush=True)
 
     # ---- phase 3: kernels against their plain versions -------------------
     cfg = get_config("config5")
@@ -1012,7 +1065,7 @@ def main() -> None:
         "library_ms": None,
     }
     del codes, full, want, res
-    new_stats, sigma_ms = kernels_5_to_8(
+    new_stats, sigma_ms, pm8_ms = kernels_5_to_8(
         torch, pq, gg, bg, n, stats["mxu_fullkey_scan"]["library_ms"])
     stats.update(new_stats)
 
@@ -1177,8 +1230,14 @@ def main() -> None:
           "shapes; the large-k and repair engines and hamming_scan_topk == "
           "numpy oracle at the edges, hamming_scan_topk == mxu_topk for 64 "
           "config5 queries; rescan at sigma 16 (256 x 1,000 winner "
-          f"subgroups) {sigma_ms:.4f} ms; device ms per call, kernel / plain "
-          "/ library / bound: "
+          f"subgroups) {sigma_ms:.4f} ms; kernel 8 (ms / torch._int_mm ms / "
+          "bound ms): "
+          + "; ".join(f"int8 {k} queries {v['ms']:.4f} / {v['library_ms']} / "
+                      f"{v['bound_ms']:.4f}" for k, v in pm8_ms.items()
+                      if k != "bf16")
+          + f"; bf16 256 queries {pm8_ms['bf16']['ms']:.4f} (bound "
+          f"{pm8_ms['bf16']['bound_ms']:.4f}); device ms per call, kernel / "
+          "plain / library / bound: "
           + "; ".join(f"{k} {v['ms']:.4f} / {v['plain_ms']:.4f} / "
                       f"{v['library_ms']} / {v['bound_ms']:.4f}"
                       for k, v in {**{k: stats[k] for k in KERNEL_INFO

@@ -19,8 +19,9 @@ counterpart is easy to find:
 - ``configs``, ``data/``, ``utils/``  the config1-5 presets, the
                synthetic splits, batching, preprocessing, checkpoints and
                metrics logging.
-- ``bench``, ``bench_scan``, ``bench_serve``, ``entry``  the scan and
-               serving benchmarks and the flagship inference entry point.
+- ``bench``, ``bench_scan``, ``bench_serve``, ``bench_pm8``, ``entry``
+               the scan, serving and pm8-route benchmarks and the flagship
+               inference entry point.
 
 It covers the serving path, every single-device search engine, stage-II
 training and evaluation without the GAN, and the measurement path; see

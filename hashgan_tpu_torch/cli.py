@@ -47,7 +47,9 @@ def _experiment(args):
 
 
 def cmd_train(args) -> None:
-    if args.stage == "1":
+    # stage "all" runs the GAN first wherever the config has one
+    if args.stage == "1" or (args.stage == "all"
+                             and _load_config(args.config).use_gan):
         raise NotImplementedError(
             "stage 1 (the GAN) is not ported yet (ROADMAP.md); run "
             "--stage 2")

@@ -3,8 +3,9 @@
 
 The reference's typed config tree (``hashgan_tpu/configs/config.py``) also
 carries the GAN, mesh and list-file settings, which the port does not read
-yet: config2-4 keep ``use_gan=True``, and training them raises until the
-GAN slice is ported. These dataclasses hold only what the port reads, under
+yet: config2-4 keep ``use_gan=True``, and their stage II trains the encoder
+on real images only, as the reference does when no generator has been
+trained (``train/loop.py``). These dataclasses hold only what the port reads, under
 the reference's field names and with its defaults, so ``cfg.encoder.bits``
 means the same in both packages and a reference ``Config`` may be passed
 wherever the port takes one. One default differs on purpose:
@@ -45,6 +46,7 @@ class EncoderConfig:
     hash_lr_multiplier: float = 10.0  # applied after Adam (train/state.py)
     iters: int = 10_000
     decay_lr: bool = False            # linear decay to 0 over ``iters``
+    pretrained_npy: Optional[str] = None  # bvlc_alexnet.npy, loaded at init
     input_resize: int = 0             # only 0 (native-size inputs) is ported
     compute_dtype: str = "bfloat16"
 

@@ -5,7 +5,8 @@ process per source, all started together, and links the objects into one
 shared library with a plain C interface, which ctypes loads (no PyTorch
 headers, so a build takes seconds, not minutes). The library is cached in
 ``csrc/build/`` (git-ignored) under a hash of the sources and flags, so an
-edited source is rebuilt and a stale library is never loaded.
+edited source is rebuilt and a stale library is never loaded; nvcc's output
+(each kernel's registers and spills) is kept beside it.
 
 Each C entry point launches one kernel on the stream it is given and
 returns ``cudaGetLastError()``; :meth:`KernelLibrary.launch` raises on a
@@ -82,7 +83,7 @@ class KernelLibrary:
         self._lock = threading.Lock()
         self.launches: Dict[str, int] = {name: 0 for name in SIGNATURES}
         self.build_seconds: Optional[float] = None  # None: loaded from cache
-        self.build_log = ""
+        self.build_log = ""  # nvcc's output (ptxas -v), kept with the cache
 
     def sources(self) -> list:
         return sorted(
@@ -134,6 +135,9 @@ class KernelLibrary:
         self.build_log = "".join(logs)
         if failed:
             raise RuntimeError(f"nvcc failed for {failed}:\n{self.build_log}")
+        with open(f"{out}.log.{tag}", "w") as f:
+            f.write(self.build_log)
+        os.replace(f"{out}.log.{tag}", f"{out}.log")
         os.replace(f"{out}.{tag}", out)
         self.build_seconds = time.perf_counter() - t0
 
@@ -143,6 +147,9 @@ class KernelLibrary:
                 path = self._library_path()
                 if not os.path.exists(path):
                     self._compile(path)
+                elif os.path.exists(f"{path}.log"):
+                    with open(f"{path}.log") as f:
+                        self.build_log = f.read()
                 lib = ctypes.CDLL(path)
                 for name, argtypes in SIGNATURES.items():
                     fn = getattr(lib, f"hg_{name}")

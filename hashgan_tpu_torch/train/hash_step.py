@@ -7,8 +7,9 @@ besides the flip (and crop) draws. The step's random draws come from
 ``data/preprocess.py::step_generator(seed, step)``, which every encoder's
 forward also receives (AlexNet seeds its dropout masks from it), so a step
 is a pure function of its inputs and a resumed run repeats it exactly.
-Training against GAN samples (stage II with ``use_gan``) and the AlexNet
-input geometry are not ported.
+Training against GAN samples (``fake_ratio``) and the AlexNet input geometry
+are not ported; without a trained generator the reference's step trains on
+real images alone, which is this step.
 """
 
 from __future__ import annotations
@@ -30,10 +31,6 @@ from hashgan_tpu_torch.train.state import EncoderState
 
 
 def _check_ported(cfg) -> None:
-    if cfg.use_gan:
-        raise NotImplementedError(
-            "stage-II training on GAN samples (use_gan=True) is not ported "
-            "yet (ROADMAP.md, GAN stage I)")
     if cfg.encoder.input_resize > 0:
         raise NotImplementedError(
             "input_resize > 0 (the AlexNet train geometry) is not ported yet "
@@ -66,7 +63,7 @@ def encoder_loss_and_grad(encoder: nn.Module, x: torch.Tensor,
 
 
 def make_encoder_train_step(cfg) -> Callable:
-    """``step(state, images_u8, labels) -> metrics`` for ``use_gan=False``:
+    """``step(state, images_u8, labels) -> metrics`` on real images:
     updates ``state`` (an ``EncoderState``) in place, advances
     ``state.step``, and returns the loss metrics as 0-dim tensors on the
     device (reading them synchronises; the loop does so at log points

@@ -11,9 +11,13 @@ Hamming ranking, build the index (port of the stage-II part of
 - ``build_index``: the packed gallery artifact;
 - ``save_checkpoint`` / ``restore_checkpoint``: bit-exact resume.
 
-One device, no mesh, no GAN and no device-resident batch feed: those raise,
-naming ROADMAP.md. The experiment runs on the first CUDA device unless the
-caller passes ``device="cpu"`` (as the tests do).
+One device, no mesh and no device-resident batch feed: those raise, naming
+ROADMAP.md. No generator is ported yet (ROADMAP.md, GAN stage I), so a
+config that asks for GAN samples (``use_gan`` and
+``train.use_gan_samples``) trains the encoder on real images only, with the
+reference's warning for a generator that was never trained. The experiment
+runs on the first CUDA device unless the caller passes ``device="cpu"`` (as
+the tests do).
 """
 
 from __future__ import annotations
@@ -58,8 +62,8 @@ from hashgan_tpu_torch.utils.logging import MetricsLogger
 class Experiment:
     def __init__(self, cfg, workdir: Optional[str] = None,
                  device: Optional[torch.device | str] = None):
-        # first: it refuses what is not ported (the GAN, the AlexNet
-        # geometry) before the splits are generated
+        # first: it refuses what is not ported (the AlexNet geometry)
+        # before the splits are generated
         self._enc_step = make_encoder_train_step(cfg)
         set_numerics()
         self.cfg = cfg
@@ -73,6 +77,9 @@ class Experiment:
         self.encoder = self.encoder_state.module
         self._encode = make_encode_fn(self.encoder, cfg)
         self._saturation_warned = False
+        # GAN samples in stage II need a trained generator, and the port has
+        # none yet: such a config trains on real images (_stage2_guard)
+        self._enc_uses_gan = cfg.use_gan and cfg.train.use_gan_samples
         self.ckpt = CheckpointManager(self.workdir)
 
     # ------------------------------------------------------------------
@@ -98,6 +105,20 @@ class Experiment:
                 "protocol setting); restart stage II from init.",
                 stacklevel=2)
 
+    def _stage2_guard(self) -> None:
+        """The reference's refusal to co-train against an untrained
+        generator (``train/loop.py:280-307``): where GAN samples are asked
+        for and the generator has never stepped and no checkpoint holds one,
+        it warns and trains on real images only. The port has no generator,
+        so that is every such run."""
+        if self._enc_uses_gan:
+            warnings.warn(
+                "stage-II requested GAN sample augmentation but the "
+                "generator has never been trained and no checkpoint "
+                "exists; training the encoder on real images only. "
+                "Run stage 1 first (or pass --resume).",
+                stacklevel=3)
+
     def train_encoder(self, iters: Optional[int] = None,
                       eval_during: bool = True) -> Dict[str, float]:
         """``iters`` steps (default ``cfg.encoder.iters``) from the current
@@ -105,6 +126,19 @@ class Experiment:
         cfg = self.cfg
         iters = iters if iters is not None else cfg.encoder.iters
         state = self.encoder_state
+        if (cfg.encoder.arch == "alexnet" and not cfg.encoder.pretrained_npy
+                and cfg.encoder.hash_lr_multiplier != 1.0 and state.step == 0):
+            # the reference's warning (hashgan_tpu/train/loop.py:384-403)
+            warnings.warn(
+                "training AlexNet from random init with "
+                f"hash_lr_multiplier={cfg.encoder.hash_lr_multiplier:g}: "
+                "the 10x multiplier is the bvlc-pretrained protocol and "
+                "drives from-scratch runs to exact tanh saturation (zero "
+                "gradient) within ~100 steps. Set "
+                "encoder.hash_lr_multiplier=1.0 or provide "
+                "encoder.pretrained_npy.",
+                stacklevel=2)
+        self._stage2_guard()
         means: Dict[str, float] = {}
         batches = make_batch_feed(
             self.splits["train"], cfg, start_step=state.step,
@@ -186,7 +220,8 @@ class Experiment:
     def _dump_curves(self, n_hist: np.ndarray, r_hist: np.ndarray) -> None:
         """The PR curve over Hamming radii (``pr_curve.npz``) and the
         precision@top-N curve at log-spaced cutoffs 1..R
-        (``precision_at_topn.npz``), plotted when matplotlib is importable."""
+        (``precision_at_topn.npz``), plotted when matplotlib is importable;
+        as in the reference, any error while plotting is ignored."""
         prec, rec = pr_curve_from_hist(n_hist, r_hist)
         np.savez(os.path.join(self.workdir, "pr_curve.npz"),
                  precision=prec, recall=rec)
@@ -201,24 +236,25 @@ class Experiment:
 
             matplotlib.use("Agg")
             import matplotlib.pyplot as plt
-        except ImportError:
-            return
-        for fname, xs, ys, xlabel, title, logx in (
-            ("pr_curve.jpg", rec, prec, "recall",
-             f"{self.cfg.name} PR over Hamming radii", False),
-            ("precision_at_topn.jpg", topns, p_topn, "top-N returned",
-             f"{self.cfg.name} precision@top-N", True),
-        ):
-            fig, ax = plt.subplots(figsize=(5, 4))
-            ax.plot(xs, ys)
-            if logx:
-                ax.set_xscale("log")
-            ax.set_xlabel(xlabel)
-            ax.set_ylabel("precision")
-            ax.set_title(title)
-            fig.tight_layout()
-            fig.savefig(os.path.join(self.workdir, fname))
-            plt.close(fig)
+
+            for fname, xs, ys, xlabel, title, logx in (
+                ("pr_curve.jpg", rec, prec, "recall",
+                 f"{self.cfg.name} PR over Hamming radii", False),
+                ("precision_at_topn.jpg", topns, p_topn, "top-N returned",
+                 f"{self.cfg.name} precision@top-N", True),
+            ):
+                fig, ax = plt.subplots(figsize=(5, 4))
+                ax.plot(xs, ys)
+                if logx:
+                    ax.set_xscale("log")
+                ax.set_xlabel(xlabel)
+                ax.set_ylabel("precision")
+                ax.set_title(title)
+                fig.tight_layout()
+                fig.savefig(os.path.join(self.workdir, fname))
+                plt.close(fig)
+        except Exception:
+            pass
 
     # ------------------------------------------------------------------
     # Checkpoint / resume
@@ -264,7 +300,14 @@ class Experiment:
 
     # ------------------------------------------------------------------
     def run(self) -> Dict[str, float]:
-        """The whole pipeline of the config: encoder training, then eval."""
+        """The whole pipeline of the config: encoder training, then eval.
+        The reference trains the GAN first where ``cfg.use_gan``; stage I is
+        not ported, so such a config raises here (``train_encoder`` runs
+        its stage II alone)."""
+        if self.cfg.use_gan:
+            raise NotImplementedError(
+                "stage 1 (the GAN) is not ported yet (ROADMAP.md); "
+                "train_encoder() runs stage 2 alone")
         self.train_encoder()
         metrics = self.evaluate()
         self.logger.log(self.encoder_state.step, metrics)

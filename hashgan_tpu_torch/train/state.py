@@ -19,6 +19,7 @@ from typing import List, Optional, Tuple
 import torch
 from torch import nn
 
+from hashgan_tpu_torch.models.alexnet import load_bvlc_weights
 from hashgan_tpu_torch.models.encoders import build_encoder, dtype_from_name
 
 HASH_PREFIX = "hash."  # the re-initialised hash layer (the reference's "hash")
@@ -69,11 +70,17 @@ def make_encoder_tx(module: nn.Module, cfg
 def create_encoder_state(cfg, device: torch.device | str) -> EncoderState:
     """The encoder of ``cfg`` with seeded initial weights (``cfg.train.seed``,
     drawn on the CPU so every device starts from the same weights) on
-    ``device``, and a fresh optimiser."""
+    ``device``, and a fresh optimiser. With ``cfg.encoder.pretrained_npy``
+    the layers of a bvlc_alexnet.npy whose shapes match are loaded over the
+    initial weights, whatever the arch, as in the reference
+    (``train/state.py:94-98``)."""
     module = build_encoder(
         cfg.encoder.arch, cfg.encoder.bits,
         dtype=dtype_from_name(cfg.encoder.compute_dtype), device=device,
         generator=torch.Generator().manual_seed(cfg.train.seed),
         image_size=cfg.data.image_size, input_resize=cfg.encoder.input_resize)
+    if cfg.encoder.pretrained_npy:
+        module.load_state_dict(load_bvlc_weights(module.state_dict(),
+                                                 cfg.encoder.pretrained_npy))
     opt, sched = make_encoder_tx(module, cfg.encoder)
     return EncoderState(module=module, optimizer=opt, scheduler=sched)

@@ -1,6 +1,6 @@
 """The port's measurement path on the CPU at toy sizes: the scan benchmark
-(``bench_scan.run_bench``, ``run_scaling``), the serving benchmark, the
-scan-variants script and the flagship ``entry()``. On the CPU the kernels
+(``bench_scan.run_bench``, ``run_scaling``), the serving benchmark, the pm8
+routes' benchmark, the scan-variants script and the flagship ``entry()``. On the CPU the kernels
 run as their plain versions and every time is host-clock (the results say
 so); what is checked here is that the witnesses hold and the results carry
 the reference's keys. ``entry()`` is held against the JAX ``entry()`` with
@@ -20,6 +20,7 @@ from hashgan_tpu_torch.bench_scan import (
     run_scaling,
     time_amortized,
 )
+from hashgan_tpu_torch.bench_pm8 import run as run_pm8_bench
 from hashgan_tpu_torch.bench_serve import run_serving_bench
 from hashgan_tpu_torch.entry import entry
 from hashgan_tpu_torch.models.convert import flax_to_torch
@@ -87,6 +88,15 @@ def test_run_serving_bench_on_cpu_is_verified():
     for mode in ("exact", "approx"):
         for kind in ("", "sustained_", "device_"):
             assert out[f"qps_{kind}{mode}"] > 0
+
+
+def test_bench_pm8_on_cpu():
+    out = run_pm8_bench("cpu", n=3000, queries=(17,))
+    assert out["card"] == "cpu" and out["bits"] == 128
+    times = out["ms"][17]
+    assert set(times) == {"kernel8", "int_mm", "pm8_exact", "pm8_approx",
+                          "exact", "approx"}
+    assert all(0 < t["min_ms"] <= t["median_ms"] for t in times.values())
 
 
 def test_exact_topk_torch_matches_numpy():

@@ -177,17 +177,45 @@ def test_tensor_core_scan_ties_and_extremes(dev):
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
 @pytest.mark.parametrize("bits", [32, 64, 96, 128, 160, 192, 224, 256])
-@pytest.mark.parametrize("n,groups", [(700, 8), (3000, 16)])
-def test_pm8_kernel_matches_plain(dev, bits, n, groups, dtype):
-    """Kernel 8 on int8 (int32 keys) and bf16 (float32 keys) copies."""
-    gal, q = _gallery(dev, n, bits, seed=bits + n, groups=groups)
+@pytest.mark.parametrize("n,groups,nq,valid_n,fill,cb", [
+    (700, 8, 7, 700, None, None),      # C = 96: a full and a half strip
+    (3000, 16, 7, 3000, None, None),   # C = 192, cb = 64
+    (3000, 16, 1, 3000, None, None),   # queries that fill no m-tile,
+    (3000, 16, 17, 3000, None, None),  # no warp, no block, or one block
+    (3000, 16, 255, 3000, None, None),  # and a query past it
+    (3000, 16, 257, 3000, None, None),
+    (3000, 16, 1024, 3000, None, None),
+    (700, 8, 33, 50, None, None),      # columns 50..95 hold only padding
+    (10, 8, 5, 10, None, None),        # C = 16: one partial strip
+    (700, 8, 9, 700, None, 8),         # 8- and 4-byte staging copies
+    (700, 8, 9, 600, None, 4),
+    (3000, 16, 40, 3000, -1, None),    # every item +1 / -1: all s tie
+    (3000, 16, 40, 2000, 0, None),
+])
+def test_pm8_kernel_matches_plain(dev, bits, n, groups, nq, valid_n, fill, cb,
+                                  dtype):
+    """Kernel 8 on int8 (int32 keys, tensor cores) and bf16 (float32 keys)
+    copies: query counts around the int8 kernel's 16-query m-tile, 32-query
+    warp and 256-query block, column counts that leave a partial 64-column
+    strip, column blocks of 64, 32, 16, 8 and 4, columns that hold only
+    padding, and galleries of equal items (the smallest s wins)."""
+    gal, _ = _gallery(dev, n, bits, seed=bits + n, groups=groups)
+    if fill is not None:
+        words = torch.full((n, gal.words), fill, dtype=torch.int32, device=dev)
+        gal = build_gallery_from_packed_device(
+            words, np.zeros((n, 1), np.float32), bits, groups=groups,
+            col_multiple=16)
+    g = torch.Generator(device=dev).manual_seed(nq + bits)
+    q = pack_codes(torch.randn(nq, bits, device=dev, generator=g))
     gg = gal.gallery_grouped
     _, L, c = gg.shape
-    gpm = ms.grouped_to_pm8(gg, ms.pm8_column_block(c), dtype=dtype)
+    gpm = ms.grouped_to_pm8(gg, cb or ms.pm8_column_block(c), dtype=dtype)
     if dtype == torch.int8:
-        qv, kb = ms.unpack_to_pm8(q), ms.build_key_base_i32(L, c, bits, n, dev)
+        qv = ms.unpack_to_pm8(q)
+        kb = ms.build_key_base_i32(L, c, bits, valid_n, dev)
     else:
-        qv, kb = ms.unpack_to_pm1(q, dtype), ms.build_key_base(L, c, bits, n, dev)
+        qv = ms.unpack_to_pm1(q, dtype)
+        kb = ms.build_key_base(L, c, bits, valid_n, dev)
     got = _counted("pm_groupmin_scan",
                    lambda: ms.mxu8_groupmin_scan(qv, gpm, kb))
     assert torch.equal(got, ms.mxu8_groupmin_scan_torch(qv, gpm, kb))
@@ -263,6 +291,11 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(dev):
     kb = ms.build_key_base_i32(8, 16, 34, 100, dev)
     with pytest.raises(ValueError, match="multiples of 4"):
         ms.mxu8_groupmin_scan(torch.ones((2, 34), dtype=torch.int8,
+                                         device=dev), gpm, kb)
+    gpm = torch.ones((36, 1, 8, 16), dtype=torch.int8, device=dev)
+    kb = ms.build_key_base_i32(8, 16, 36, 100, dev)
+    with pytest.raises(ValueError, match="steps of 32"):
+        ms.mxu8_groupmin_scan(torch.ones((2, 36), dtype=torch.int8,
                                          device=dev), gpm, kb)
 
 

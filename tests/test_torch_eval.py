@@ -176,3 +176,36 @@ def test_radius_pr_and_topn_curves_match_jax_and_oracles():
         want, streaming_jax.precision_at_topn_np(d, rel, topns), rtol=0,
         atol=1e-12)
     np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize("streaming_threshold", [None, 0])
+def test_evaluate_survives_a_plotting_error(tmp_path, monkeypatch,
+                                            streaming_threshold):
+    """A plotting error (here from a broken ``plt.subplots``) is ignored,
+    as in the reference: evaluate() returns its metrics, exact or
+    histogram-based, and both curves' .npz files are written."""
+    import dataclasses
+
+    import matplotlib.pyplot as plt
+
+    from hashgan_tpu_torch.configs import get_config
+    from hashgan_tpu_torch.train.loop import Experiment
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("no display")
+
+    monkeypatch.setattr(plt, "subplots", broken)
+    cfg = get_config("config1")
+    cfg = dataclasses.replace(
+        cfg,
+        data=dataclasses.replace(cfg.data, image_size=16, n_classes=4,
+                                 n_train=16, n_query=12, n_database=40),
+        encoder=dataclasses.replace(cfg.encoder, compute_dtype="float32"),
+        eval=dataclasses.replace(cfg.eval, R=20, pr_curve=True))
+    exp = Experiment(cfg, workdir=str(tmp_path), device="cpu")
+    m = exp.evaluate(streaming_threshold=streaming_threshold)
+    want = "map_at_20" if streaming_threshold is None else "map_at_20_tie_aware"
+    assert set(m) == {want, "precision_at_h2"}
+    assert all(0.0 <= v <= 1.0 for v in m.values())
+    for name in ("pr_curve.npz", "precision_at_topn.npz"):
+        assert (tmp_path / name).exists(), name

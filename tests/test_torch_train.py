@@ -15,6 +15,7 @@ utils/checkpoint.py, cli.py) against the JAX reference, on the CPU.
 import dataclasses
 import json
 import os
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -63,7 +64,7 @@ from hashgan_tpu_torch.train.hash_step import (
     make_encoder_train_step,
 )
 from hashgan_tpu_torch.train.loop import Experiment
-from hashgan_tpu_torch.train.state import make_encoder_tx
+from hashgan_tpu_torch.train.state import create_encoder_state, make_encoder_tx
 from hashgan_tpu_torch.utils.checkpoint import CheckpointManager
 
 TOL = 1e-5
@@ -320,7 +321,8 @@ def test_experiment_evaluates_as_the_oracle(tmp_path):
 
 def test_train_step_restores_nothing_it_should_not(tmp_path):
     """The encode function leaves the module's mode as it found it; the
-    train step advances the step and refuses what is not ported."""
+    train step refuses what is not ported (the AlexNet input geometry) and
+    takes ``use_gan`` configs, whose stage II trains on real images."""
     enc = SmallCNNEncoder(bits=32, dim=8)
     enc.train()
     make_encode_fn(enc)(np.zeros((2, 16, 16, 3), np.uint8))
@@ -329,13 +331,137 @@ def test_train_step_restores_nothing_it_should_not(tmp_path):
     make_encode_fn(enc)(np.zeros((2, 16, 16, 3), np.uint8))
     assert not enc.training
     cfg = _tiny_cfg(tmp_path)
-    for bad in (dataclasses.replace(cfg, use_gan=True),
-                dataclasses.replace(cfg, encoder=dataclasses.replace(
-                    cfg.encoder, input_resize=227))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_encoder_train_step(bad)
+    resized = dataclasses.replace(cfg, encoder=dataclasses.replace(
+        cfg.encoder, input_resize=227))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Experiment(dataclasses.replace(cfg, use_gan=True), device="cpu")
+        make_encoder_train_step(resized)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Experiment(resized, device="cpu")
+    make_encoder_train_step(dataclasses.replace(cfg, use_gan=True))
+
+
+GAN_WARNING = "stage-II requested GAN sample augmentation"
+RANDOM_INIT_WARNING = "training AlexNet from random init"
+
+
+def _config2_yaml(tmp_path, encoder=None, **train):
+    """config2 (AlexNet 48 bits bf16, use_gan) with its splits cut small."""
+    import yaml
+
+    raw = {"preset": "config2",
+           "data": {"n_train": 32, "n_query": 8, "n_database": 40},
+           "encoder": encoder or {},
+           "train": {"batch_size": 8, "log_every": 1, "eval_every": 10**6,
+                     "checkpoint_every": 10**6,
+                     "workdir": str(tmp_path / "wd"), **train}}
+    path = tmp_path / "config2.yaml"
+    path.write_text(yaml.safe_dump(raw))
+    return str(path)
+
+
+def _train_recording(exp, steps):
+    """Trains ``steps`` steps; returns the messages of every warning."""
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        exp.train_encoder(steps, eval_during=False)
+    return [str(w.message) for w in rec]
+
+
+def test_stage2_with_use_gan_trains_on_real_images(tmp_path):
+    """config2's stage II asks for GAN samples and no generator has been
+    trained: the reference's warning, once, and then the very steps of the
+    same config with use_gan=False, bit for bit."""
+    cfg = load_yaml(_config2_yaml(tmp_path))
+    assert cfg.use_gan and cfg.train.use_gan_samples
+    assert (cfg.encoder.arch, cfg.encoder.bits) == ("alexnet", 48)
+    gan = Experiment(cfg, workdir=str(tmp_path / "gan"), device="cpu")
+    assert sum(GAN_WARNING in m for m in _train_recording(gan, 2)) == 1
+    plain = Experiment(dataclasses.replace(cfg, use_gan=False),
+                       workdir=str(tmp_path / "plain"), device="cpu")
+    assert not any(GAN_WARNING in m for m in _train_recording(plain, 2))
+    (pa, _, sa), (pb, _, sb) = _state(gan), _state(plain)
+    assert sa == sb == 2
+    for name in pa:
+        assert torch.equal(pa[name], pb[name]), name
+    # the whole pipeline (and the CLI's default --stage all) would train
+    # the GAN first, as the reference does: refused, not skipped
+    with pytest.raises(NotImplementedError, match="stage 1"):
+        gan.run()
+
+
+def test_stage2_without_gan_samples_does_not_warn(tmp_path, monkeypatch):
+    """The yaml turns GAN samples off: stage II trains without the warning,
+    through the CLI too; --stage all would need stage 1 and is refused."""
+    path = _config2_yaml(tmp_path, use_gan_samples=False)
+    cfg = load_yaml(path)
+    assert cfg.use_gan and not cfg.train.use_gan_samples
+    exp = Experiment(cfg, device="cpu")
+    assert not any(GAN_WARNING in m for m in _train_recording(exp, 2))
+    assert exp.encoder_state.step == 2
+    monkeypatch.setattr(cli, "_device", lambda gpu: torch.device("cpu"))
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        cli.main(["train", "--config", path, "--stage", "2", "--iters", "1"])
+    assert not any(GAN_WARNING in str(w.message) for w in rec)
+    with pytest.raises(NotImplementedError, match="stage 1"):
+        cli.main(["train", "--config", path])
+
+
+def _fake_bvlc_npy(path):
+    """A bvlc_alexnet.npy stand-in in the reference's schema ({layer: [W,
+    b]}, conv W in HWIO, as tests/test_alexnet_parity.py builds one), the
+    convolutions only: the fc layers of the real file are sized for 227x227
+    inputs and keep their init at 32x32 anyway."""
+    rng = np.random.default_rng(0)
+    shapes = {"conv1": (11, 11, 3, 96), "conv2": (5, 5, 48, 256),
+              "conv3": (3, 3, 256, 384), "conv4": (3, 3, 192, 384),
+              "conv5": (3, 3, 192, 256)}
+    blobs = {name: [rng.standard_normal(s).astype(np.float32),
+                    rng.standard_normal(s[-1]).astype(np.float32)]
+             for name, s in shapes.items()}
+    np.save(path, np.asarray(blobs, dtype=object), allow_pickle=True)
+    return blobs
+
+
+def test_pretrained_npy_is_loaded_at_init(tmp_path):
+    """encoder.pretrained_npy from a yaml: create_encoder_state loads it
+    (conv1 equals the npy's, in OIHW), and the random-init warning stays
+    quiet. A non-AlexNet arch keeps its init (no layer matches), as in the
+    reference; a missing file raises."""
+    npy = str(tmp_path / "bvlc_alexnet.npy")
+    blobs = _fake_bvlc_npy(npy)
+    cfg = load_yaml(_config2_yaml(tmp_path, encoder={"pretrained_npy": npy}))
+    assert cfg.encoder.pretrained_npy == npy
+    module = create_encoder_state(cfg, "cpu").module
+    np.testing.assert_array_equal(module.conv1.weight.detach().numpy(),
+                                  blobs["conv1"][0].transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(module.conv1.bias.detach().numpy(),
+                                  blobs["conv1"][1])
+    exp = Experiment(cfg, device="cpu")
+    assert not any(RANDOM_INIT_WARNING in m for m in _train_recording(exp, 1))
+
+    small = _tiny_cfg(tmp_path)
+    with_npy = dataclasses.replace(small, encoder=dataclasses.replace(
+        small.encoder, pretrained_npy=npy))
+    got = create_encoder_state(with_npy, "cpu").module.state_dict()
+    want = create_encoder_state(small, "cpu").module.state_dict()
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    with pytest.raises(FileNotFoundError):
+        create_encoder_state(dataclasses.replace(cfg, encoder=dataclasses.replace(
+            cfg.encoder, pretrained_npy=str(tmp_path / "missing.npy"))), "cpu")
+
+
+@pytest.mark.parametrize("mult,warns", [(10.0, True), (1.0, False)])
+def test_random_init_alexnet_warning(tmp_path, mult, warns):
+    """AlexNet from random init with the pretrained protocol's 10x hash
+    multiplier warns at step 0 (the reference's guard), not at 1.0 and not
+    after the first step."""
+    cfg = load_yaml(_config2_yaml(
+        tmp_path, encoder={"hash_lr_multiplier": mult}, use_gan_samples=False))
+    exp = Experiment(cfg, device="cpu")
+    first = _train_recording(exp, 1)
+    assert sum(RANDOM_INIT_WARNING in m for m in first) == int(warns)
+    assert not any(RANDOM_INIT_WARNING in m for m in _train_recording(exp, 1))
 
 
 def test_saturation_guard_warns_once(tmp_path):
