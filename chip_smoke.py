@@ -67,8 +67,9 @@ EDGE_CASES = (  # (bits, n, queries, k): W = 1, 2 (48-bit padding), 4, 2
     (64, 10, 3, 50),    # columns 10..15 all padding; k > C = 16
 )
 # Kernel 4 at edge shapes: (words, queries, items, column offset into a
-# wider gallery, k, slab). Neither Q nor N is a multiple of the kernel's
-# 32 x 1,024 tile; W = 5 takes the runtime-W instantiation; an odd offset
+# wider gallery, k, slab). Q is mostly not a multiple of the kernel's 8
+# queries a block, N not of 4 or 1,024; W = 5 takes the runtime-W
+# instantiation; an odd offset
 # breaks the 16-byte alignment of the gallery rows.
 HAMMING_EDGES = (
     (1, 33, 1025, 0, 20, 256),
@@ -77,6 +78,25 @@ HAMMING_EDGES = (
     (4, 1, 1, 0, 5, 1),
     (4, 40, 5, 2, 8, 2),
     (5, 9, 777, 1, 50, 300),
+)
+# Kernel 7 at the edges of its tiling, each at W = 1..8: (items, groups,
+# column multiple, queries, fill). Query counts around the 16-query m-tile
+# and the 256-query block; C = 96, 80 and 87 cut a 64-column strip (87 is
+# odd: 4-byte staging copies); one group (min2 = INT32_MAX); columns 10..15
+# hold only padding; "same" and "complement" make every distance 0 or B, so
+# min2 must be the next s and not a copy of min1.
+MIN2_EDGES = (
+    (700, 8, 16, 1, None),
+    (700, 8, 16, 7, None),
+    (3000, 16, 16, 33, None),
+    (3000, 16, 16, 129, None),
+    (5000, 64, 16, 257, None),
+    (700, 8, 16, 300, None),
+    (10, 8, 16, 9, None),
+    (700, 1, 16, 7, None),
+    (695, 8, 1, 40, None),
+    (3000, 16, 16, 40, "same"),
+    (3000, 16, 16, 40, "complement"),
 )
 STAGE2_STEPS = 500
 # The reference's MAP@1000 after 500 stage-II steps of config1 (seed 0),
@@ -560,6 +580,7 @@ def engines(torch, engine, gallery, batches, gen) -> dict:
         f"approx k={LARGE_K[0]}": lambda: gallery.topk(pq, k=LARGE_K[0],
                                                        mode="approx"),
         "repair=100 k=100": lambda: gallery.topk(pq, k=100, repair=100),
+        "repair=8 k=100": lambda: gallery.topk(pq, k=100, repair=8),
     })
     ms_per = {name: device_ms(torch, fn, 3, 3) for name, fn in timed.items()}
     del pm8_gal
@@ -948,6 +969,7 @@ def main() -> None:
         groupmin_scan,
         groupmin_scan_torch,
         groupmin_topk,
+        to_grouped_layout,
     )
     from hashgan_tpu_torch.ops.mxu_large_k import (
         mxu_subgroupmin_scan,
@@ -973,6 +995,7 @@ def main() -> None:
         mxu_topk,
         pm8_column_block,
         unpack_to_pm1,
+        unpack_to_pm8,
     )
     from hashgan_tpu_torch.ops.pack import pack_codes, pack_codes_torch
     from hashgan_tpu_torch.ops.scan_variants import fullkey_scan_bf16
@@ -986,13 +1009,19 @@ def main() -> None:
             for line in lib.build_log.splitlines() if "Used " in line]
     nvcc = ("library reused from csrc/build" if lib.build_seconds is None
             else f"nvcc {lib.build_seconds:.2f} s")
-    k8 = ptxas_usage(lib.build_log, "pm_int8_mma_kernel")
+    usage = {k: ptxas_usage(lib.build_log, fn) for k, fn in (
+        ("kernel 7", "groupmin_min2_mma_kernel"),
+        ("kernel 8 int8", "pm_int8_mma_kernel"))}
+    check(len(usage["kernel 7"]) == 8 and not any(
+        st or ld for _, st, ld in usage["kernel 7"].values()),
+        f"kernel 7 spills or is missing from the build log: {usage}")
     print(f"phase 2 build: {len(KERNEL_INFO)} kernels from "
           f"hashgan_tpu_torch/csrc in {build_s:.2f} s ({nvcc}; registers per "
-          f"instantiation: {', '.join(regs)}); kernel 8 int8 by words W "
-          "(registers, spill stores / loads bytes): "
-          + ", ".join(f"W={w} {r} {st}/{ld}" for w, (r, st, ld)
-                      in sorted(k8.items())), flush=True)
+          f"instantiation: {', '.join(regs)}); by words W (registers, spill "
+          "stores / loads bytes): "
+          + "; ".join(f"{k} " + ", ".join(
+              f"W={w} {r} {st}/{ld}" for w, (r, st, ld) in sorted(u.items()))
+              for k, u in usage.items()), flush=True)
 
     # ---- phase 3: kernels against their plain versions -------------------
     cfg = get_config("config5")
@@ -1178,14 +1207,32 @@ def main() -> None:
             **bound(4 * (h_q.numel() + h_g.numel() + got.numel()),
                     distance_ops(got.numel(), 32 * words1), INT8_PER_S),
         }
+        # yardsticks the port never calls: torch._int_mm on the +-1 int8
+        # codes writes int32 distances' worth of bytes, as the kernel does
+        # (library_ms); the bf16 matmul writes half of them
         lib, n_bits = pm1_matmul(torch, h_q, h_g)
         check(torch.equal(((n_bits - lib().float()) / 2).int(), got),
               f"+-1 matmul distances != kernel at {nq} x {ng}")
-        timing["library_ms"] = device_ms(torch, lib, 20)
+        bf16_ms = device_ms(torch, lib, 20)
+        a8, g8 = unpack_to_pm8(h_q), unpack_to_pm8(h_g)
+        timing["library_ms"] = None
+        for b8 in (g8.t().contiguous(), g8.t()):  # row- or column-major
+            try:
+                check(torch.equal((n_bits - torch._int_mm(a8, b8)) // 2, got),
+                      f"torch._int_mm distances != kernel at {nq} x {ng}")
+            except RuntimeError as e:
+                print(f"torch._int_mm does not take the +-1 codes with "
+                      f"strides {b8.stride()}: {str(e)[:200]}", flush=True)
+                continue
+            timing["library_ms"] = device_ms(
+                torch, lambda: torch._int_mm(a8, b8), 20)
+            break
+        # the write stream's practical ceiling: a fill of the same output
+        fill_ms = device_ms(torch, lambda: got.fill_(1), 50)
         if not extra:
             stats["hamming"] = timing
-        extra[f"{nq}x{ng}"] = timing
-        del h_q, h_g, h_gt, got, want, lib
+        extra[f"{nq}x{ng}"] = {**timing, "bf16_ms": bf16_ms, "fill_ms": fill_ms}
+        del h_q, h_g, h_gt, got, want, lib, a8, g8, b8
     for e_w, e_q, e_n, off, e_k, slab in HAMMING_EDGES:
         e_pq = words(e_q, e_w)
         e_gt = words(e_w, e_n + off + 3)[:, off:off + e_n]
@@ -1206,6 +1253,22 @@ def main() -> None:
             check((i[:, :kk] == oi).all() and (d[:, :kk] == od).all()
                   and (i[:, kk:] == tail).all() and (d[:, kk:] == sentinel).all(),
                   f"hamming_scan_topk != oracle at {e_w, e_q, e_n, valid_n}")
+    for e_w in range(1, 9):
+        for e_n, groups, cm, e_q, fill in MIN2_EDGES:
+            e_pq = words(e_q, e_w)
+            e_packed = (words(e_n, e_w) if fill is None else
+                        (e_pq[:1] if fill == "same" else ~e_pq[:1])
+                        .expand(e_n, e_w).contiguous())
+            if fill is not None:
+                e_pq = e_pq[:1].expand(e_q, e_w).contiguous()
+            e_gg = to_grouped_layout(e_packed, groups, cm)
+            _, e_L, e_C = e_gg.shape
+            for valid_n in (e_n, e_L * e_C, e_n // 3, 0):
+                check(all(torch.equal(a, b) for a, b in zip(
+                    groupmin_scan(e_pq, e_gg, valid_n),
+                    groupmin_scan_torch(e_pq, e_gg, valid_n))),
+                    f"min2 scan != plain at edge case "
+                    f"{e_w, e_n, groups, cm, e_q, fill, valid_n}")
     same = torch.full((9, 2), 0x55555555, dtype=torch.int32, device=dev)
     same_g = torch.full((2, 3001), 0x55555555, dtype=torch.int32, device=dev)
     check(torch.equal(hamming_distance_t(same, same_g),
@@ -1226,8 +1289,8 @@ def main() -> None:
     torch.cuda.synchronize()
     print("phase 3 kernels: bit-identical to their plain versions at the "
           f"main-path shapes (kernel 8 on the int8 and the bf16 pm8 copy), "
-          f"{len(EDGE_CASES)} scan and {len(HAMMING_EDGES) + 1} Hamming edge "
-          "shapes; the large-k and repair engines and hamming_scan_topk == "
+          f"{len(EDGE_CASES)} scan, {len(HAMMING_EDGES) + 1} Hamming and "
+          f"{8 * len(MIN2_EDGES)} min2 (W = 1..8) edge shapes; the large-k and repair engines and hamming_scan_topk == "
           "numpy oracle at the edges, hamming_scan_topk == mxu_topk for 64 "
           "config5 queries; rescan at sigma 16 (256 x 1,000 winner "
           f"subgroups) {sigma_ms:.4f} ms; kernel 8 (ms / torch._int_mm ms / "
@@ -1236,14 +1299,17 @@ def main() -> None:
                       f"{v['bound_ms']:.4f}" for k, v in pm8_ms.items()
                       if k != "bf16")
           + f"; bf16 256 queries {pm8_ms['bf16']['ms']:.4f} (bound "
-          f"{pm8_ms['bf16']['bound_ms']:.4f}); device ms per call, kernel / "
-          "plain / library / bound: "
-          + "; ".join(f"{k} {v['ms']:.4f} / {v['plain_ms']:.4f} / "
-                      f"{v['library_ms']} / {v['bound_ms']:.4f}"
-                      for k, v in {**{k: stats[k] for k in KERNEL_INFO
-                                      if k != "hamming"},
-                                   **{f"hamming {s}": t for s, t in
-                                      extra.items()}}.items()),
+          f"{pm8_ms['bf16']['bound_ms']:.4f}); kernel 4 (ms / plain / "
+          "torch._int_mm / bf16 matmul / fill of its output / bound): "
+          + "; ".join(f"{s} {t['ms']:.4f} / {t['plain_ms']:.4f} / "
+                      f"{t['library_ms']} / {t['bf16_ms']:.4f} / "
+                      f"{t['fill_ms']:.4f} / {t['bound_ms']:.4f}"
+                      for s, t in extra.items())
+          + "; device ms per call, kernel / plain / library / bound: "
+          + "; ".join(f"{k} {stats[k]['ms']:.4f} / "
+                      f"{stats[k]['plain_ms']:.4f} / {stats[k]['library_ms']} "
+                      f"/ {stats[k]['bound_ms']:.4f}"
+                      for k in KERNEL_INFO if k != "hamming"),
           flush=True)
 
     # ---- phase 4: config5 main path through the ServingPipeline ----------

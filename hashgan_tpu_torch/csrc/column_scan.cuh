@@ -1,5 +1,5 @@
-// Shared pieces of the grouped-layout scans (subgroupmin_scan.cu,
-// groupmin_scan.cu, groupmin_min2.cu).
+// Shared pieces of the grouped-layout scans on the CUDA cores
+// (subgroupmin_scan.cu, groupmin_scan.cu).
 //
 // The gallery is the grouped layout (W, L, C): item idx = s*C + c is word w
 // at [w, s, c]. One thread owns one column c, a block 128 columns and 32

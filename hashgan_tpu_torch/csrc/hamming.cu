@@ -9,17 +9,23 @@
 // Bound on the H100: writing the output. The kernel reads 4*W*(Q + N) bytes
 // and writes 4*Q*N; at the evaluation's chunk (256 x 54,000, W = 1) that is
 // 55.3 MB written for 13.8M popcounts, about 16.5 us at 3.35 TB/s, while the
-// popcounts alone would take about 3.3 us at the POPC rate.
+// popcounts alone would take about 3.3 us at the POPC rate. So the kernel is
+// a write stream, and a plain fill of the same output is its practical
+// ceiling (chip_smoke.py times one beside it).
 // Design:
-// - a block covers 32 queries x 1,024 columns; it stages the 32 query rows
-//   in shared memory (every lane of a warp reads the same word: a
+// - a block covers 8 queries x 1,024 columns (many small blocks keep the
+//   write stream full: 6,750 at the evaluation's chunk); it stages the query
+//   rows in shared memory (every lane of a warp reads the same word: a
 //   broadcast);
 // - each thread owns 4 consecutive columns: it loads their W words from the
 //   (W, N) rows once (a 16-byte load where aligned, so a warp reads 512
-//   contiguous bytes per word) and keeps them in registers for all 32
+//   contiguous bytes per word) and keeps them in registers for the block's
 //   queries;
 // - each (query, thread) result is one 16-byte int4 store along N, so the
-//   writes are full, coalesced 512-byte lines per warp;
+//   writes are full, coalesced 512-byte lines per warp; the stores are
+//   streaming (st.global.cs, evict-first): on the H100 they run close to
+//   the fill, where plain write-back stores did not, and the evaluation's
+//   readers of the output were no slower for it;
 // - the ragged Q and N edges are masked, not padded: no copy is made. A
 //   gallery row stride (ldg) lets a caller pass a column slice of a larger
 //   (W, N_total) gallery, as the slabbed top-k does.
@@ -33,13 +39,13 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kColsPerThread = 4;
 constexpr int kColsPerBlock = kThreads * kColsPerThread;  // 1,024
-constexpr int kQueriesPerBlock = 32;
+constexpr int kQueriesPerBlock = 8;
 
 __device__ __forceinline__ void store_row(int32_t* __restrict__ row,
                                           const int d[kColsPerThread],
                                           int64_t c0, int n, bool vec_out) {
   if (vec_out && c0 + kColsPerThread <= n) {
-    *reinterpret_cast<int4*>(row) = make_int4(d[0], d[1], d[2], d[3]);
+    __stcs(reinterpret_cast<int4*>(row), make_int4(d[0], d[1], d[2], d[3]));
   } else {
 #pragma unroll
     for (int j = 0; j < kColsPerThread; ++j)

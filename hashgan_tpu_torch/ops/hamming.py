@@ -24,7 +24,7 @@ from hashgan_tpu_torch.ops import _build
 from hashgan_tpu_torch.ops.mxu_scan import check_mode
 from hashgan_tpu_torch.ops.pack import popcount32
 
-MAX_QUERIES = 65535 * 32  # the kernel's grid: 32 queries per block row
+MAX_QUERIES = 65535 * 8  # the kernel's grid: 8 queries per block row
 
 
 def hamming_distance_torch(packed_q: torch.Tensor,

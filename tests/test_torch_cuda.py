@@ -139,6 +139,50 @@ def test_grouped_scan_kernels_5_to_7_match_plain(dev, bits, n, groups):
 
 
 @pytest.mark.parametrize("bits", [32, 64, 96, 128, 160, 192, 224, 256])
+@pytest.mark.parametrize("n,groups,cm,nq,fill", [
+    (700, 8, 16, 1, None),        # C = 96: a full and a half strip
+    (700, 8, 16, 7, None),        # queries that fill no m-tile,
+    (3000, 16, 16, 33, None),     # no warp, no block, or one block
+    (3000, 16, 16, 129, None),    # and a query past it
+    (5000, 64, 16, 257, None),    # C = 80: a partial strip
+    (700, 8, 16, 300, None),
+    (10, 8, 16, 9, None),         # C = 16: columns 10..15 only padding
+    (700, 1, 16, 7, None),        # groups = 1: L = 1, min2 = INT32_MAX
+    (695, 8, 1, 40, None),        # C = 87: odd, 4-byte staging copies
+    (3000, 300, 1, 33, None),     # L = 300 groups of C = 10 columns
+    (1100, 520, 1, 7, None),      # L = 520, C = 3
+    (3000, 16, 16, 40, "same"),   # d = 0 everywhere: s = 0 and s = 1
+    (3000, 16, 16, 40, "complement"),  # d = B everywhere
+])
+def test_min2_kernel_matches_plain(dev, bits, n, groups, cm, nq, fill):
+    """Kernel 7 (mma.sync s8) at W = 1..8 against its plain twin: query
+    counts around the 16-query m-tile, the warp and the 256-query block,
+    column counts that leave a partial strip, one group and hundreds,
+    padding items and all-padding columns (valid_n = n, L*C, n // 3 and 0),
+    and galleries of equal items, where min2 must be the next s and not a
+    copy of min1."""
+    g = torch.Generator(device=dev).manual_seed(bits * 7 + n + nq)
+    q = pack_codes(torch.randn(nq, bits, device=dev, generator=g))
+    if fill is None:
+        packed = pack_codes(torch.randn(n, bits, device=dev, generator=g))
+    else:
+        q = q[:1].expand(nq, bits // 32).contiguous()
+        packed = (q[:1] if fill == "same" else ~q[:1]).expand(n, bits // 32)
+    gg = gm.to_grouped_layout(packed.contiguous(), groups, cm)
+    _, L, c = gg.shape
+    for valid_n in (n, L * c, n // 3, 0):
+        got = _counted("groupmin_min2",
+                       lambda: gm.groupmin_scan(q, gg, valid_n))
+        want = gm.groupmin_scan_torch(q, gg, valid_n)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        if fill == "same":  # d = 0: the items s = 0 and s = 1 of each column
+            idx = torch.arange(2 * c, device=dev, dtype=torch.int32).view(2, c)
+            keys = torch.where(idx < valid_n, idx, idx + gm.PAD_BASE)
+            assert torch.equal(got[0], keys[0].expand(nq, c))
+            assert torch.equal(got[1], keys[1].expand(nq, c))
+
+
+@pytest.mark.parametrize("bits", [32, 64, 96, 128, 160, 192, 224, 256])
 @pytest.mark.parametrize("n,groups,nq", [(700, 8, 7), (10, 8, 300),
                                          (3000, 16, 129), (5000, 64, 33)])
 def test_tensor_core_scan_matches_plain(dev, bits, n, groups, nq):
@@ -302,10 +346,15 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(dev):
 @pytest.mark.parametrize("w,q,n,off", [(1, 256, 5400, 0), (1, 33, 1025, 1),
                                        (2, 7, 3001, 3), (3, 65, 2047, 2),
                                        (4, 1, 1, 0), (4, 40, 5, 1),
-                                       (5, 9, 777, 0), (8, 3, 100, 2)])
+                                       (5, 9, 777, 0), (8, 3, 100, 2),
+                                       (1, 1000, 32768, 0), (1, 17, 2052, 0),
+                                       (2, 70, 4099, 4), (3, 129, 2054, 1),
+                                       (4, 33, 8200, 5), (5, 65, 4100, 3)])
 def test_hamming_kernel_matches_plain(dev, w, q, n, off):
-    """Ragged Q and N, W = 1..5 and 8 (runtime-W instantiation past 4),
-    and column slices whose rows are not 16-byte aligned."""
+    """Ragged Q and N (Q not a multiple of the block's queries, N not a
+    multiple of 4 or 8), W = 1..5 and 8 (runtime-W instantiation past 4),
+    and column slices whose rows are not 16-byte aligned; the evaluation's
+    1,000 x 32,768 slab."""
     g = torch.Generator(device=dev).manual_seed(q * n + w)
     pq = torch.randint(-2**31, 2**31 - 1, (q, w), dtype=torch.int32,
                        device=dev, generator=g)

@@ -49,9 +49,16 @@ def _oracle(pq, packed, k):
 @pytest.mark.parametrize("bits,n,q,groups", [(32, 700, 9, 8),
                                              (48, 1200, 5, 8),
                                              (128, 500, 7, 16),
-                                             (64, 10, 3, 8)])
+                                             (64, 10, 3, 8),
+                                             (32, 100, 5, 1),    # L = 1
+                                             (160, 600, 9, 8),   # W = 5
+                                             (256, 300, 3, 8),   # W = 8
+                                             (256, 10, 2, 4),    # padding
+                                             (32, 3000, 3, 300)])  # L = 300
 def test_groupmin_scan_matches_jax(bits, n, q, groups):
-    """Kernel 7's plain twin: min and second-min of d*stride + addend."""
+    """Kernel 7's plain twin: min and second-min of d*stride + addend, with
+    one group (no second item: INT32_MAX), W = 5 and 8, columns that hold
+    only padding items, and 300 groups."""
     rng = np.random.default_rng(bits + n)
     packed = pack_codes_np(_pm1(rng, n, bits))
     gg, _, _ = _layouts(packed, groups=groups)
@@ -65,6 +72,30 @@ def test_groupmin_scan_matches_jax(bits, n, q, groups):
         np.testing.assert_array_equal(m2.numpy(), np.asarray(j2))
     np.testing.assert_array_equal(port.build_addend(L, c, n).numpy(),
                                   np.asarray(addend_jax(L, c, n)))
+
+
+@pytest.mark.parametrize("bits,fill", [(32, "same"), (128, "same"),
+                                       (64, "complement"), (256, "complement"),
+                                       (96, "few")])
+def test_groupmin_scan_ties_match_jax(bits, fill):
+    """Heavy ties: every item equal to every query (d = 0: min and min2 are
+    s = 0 and s = 1), every item the complement (d = B), or three distinct
+    codes; padding columns past valid_n."""
+    rng = np.random.default_rng(bits)
+    n, q = 500, 6
+    vocab = pack_codes_np(_pm1(rng, 3, bits))
+    pq = vocab[rng.integers(0, 3, q)] if fill == "few" else np.repeat(
+        vocab[:1], q, axis=0)
+    items = {"same": vocab[:1], "complement": ~vocab[:1], "few": vocab}[fill]
+    packed = items[rng.integers(0, len(items), n)]
+    gg, _, _ = _layouts(packed, groups=8)
+    _, L, c = gg.shape
+    for valid_n in (n, L * c, 0):
+        m1, m2 = port.groupmin_scan(_t(pq), _t(gg), valid_n)
+        j1, j2 = scan_jax(jnp.asarray(pq), jnp.asarray(gg), valid_n,
+                          query_tile=8, col_block=16, interpret=True)
+        np.testing.assert_array_equal(m1.numpy(), np.asarray(j1))
+        np.testing.assert_array_equal(m2.numpy(), np.asarray(j2))
 
 
 @pytest.mark.parametrize("exact", [True, False])

@@ -30,8 +30,11 @@ def _t(a):
 
 
 @pytest.mark.parametrize("w,q,n", [(1, 13, 301), (2, 30, 100), (4, 7, 2049),
-                                   (3, 1, 5)])
+                                   (3, 1, 5), (1, 33, 1030), (2, 17, 258),
+                                   (5, 9, 777), (8, 3, 100)])
 def test_plain_twin_matches_pallas_and_numpy(w, q, n):
+    """Ragged Q and N (N not a multiple of 4 or 8), and W = 5 and 8, which
+    the kernel runs on its runtime-W path."""
     rng = np.random.default_rng(w * 100 + q)
     pq, pg = _words(rng, q, w), _words(rng, n, w)
     want = hamming_distance_np(pq, pg)
