@@ -79,12 +79,13 @@ HAMMING_EDGES = (
     (4, 40, 5, 2, 8, 2),
     (5, 9, 777, 1, 50, 300),
 )
-# Kernel 7 at the edges of its tiling, each at W = 1..8: (items, groups,
-# column multiple, queries, fill). Query counts around the 16-query m-tile
-# and the 256-query block; C = 96, 80 and 87 cut a 64-column strip (87 is
-# odd: 4-byte staging copies); one group (min2 = INT32_MAX); columns 10..15
-# hold only padding; "same" and "complement" make every distance 0 or B, so
-# min2 must be the next s and not a copy of min1.
+# Kernels 5-7 at the edges of their tiling, each at W = 1..8: (items,
+# groups, column multiple, queries, fill). Query counts around the 16-query
+# m-tile and the 256-query block; C = 96, 80 and 87 cut a 64-column strip
+# (87 is odd: 4-byte staging copies); one group (min2 = INT32_MAX); columns
+# 10..15 hold only padding; "same" and "complement" make every distance 0
+# or B, so min2 must be the next s and not a copy of min1. Kernel 5 runs
+# each row at every sigma in SIGMAS that divides L.
 MIN2_EDGES = (
     (700, 8, 16, 1, None),
     (700, 8, 16, 7, None),
@@ -98,6 +99,7 @@ MIN2_EDGES = (
     (3000, 16, 16, 40, "same"),
     (3000, 16, 16, 40, "complement"),
 )
+SIGMAS = (1, 2, 16)  # and L: kernel 5's subgroup sizes at the edges
 STAGE2_STEPS = 500
 # The reference's MAP@1000 after 500 stage-II steps of config1 (seed 0),
 # measured on the CPU with
@@ -1010,11 +1012,14 @@ def main() -> None:
     nvcc = ("library reused from csrc/build" if lib.build_seconds is None
             else f"nvcc {lib.build_seconds:.2f} s")
     usage = {k: ptxas_usage(lib.build_log, fn) for k, fn in (
+        ("kernel 5", "subgroupmin_mma_kernel"),
+        ("kernel 6", "groupmin_scan_mma_kernel"),
         ("kernel 7", "groupmin_min2_mma_kernel"),
         ("kernel 8 int8", "pm_int8_mma_kernel"))}
-    check(len(usage["kernel 7"]) == 8 and not any(
-        st or ld for _, st, ld in usage["kernel 7"].values()),
-        f"kernel 7 spills or is missing from the build log: {usage}")
+    for k in ("kernel 5", "kernel 6", "kernel 7"):
+        check(len(usage[k]) == 8 and not any(
+            st or ld for _, st, ld in usage[k].values()),
+            f"{k} spills or is missing from the build log: {usage}")
     print(f"phase 2 build: {len(KERNEL_INFO)} kernels from "
           f"hashgan_tpu_torch/csrc in {build_s:.2f} s ({nvcc}; registers per "
           f"instantiation: {', '.join(regs)}); by words W (registers, spill "
@@ -1253,6 +1258,7 @@ def main() -> None:
             check((i[:, :kk] == oi).all() and (d[:, :kk] == od).all()
                   and (i[:, kk:] == tail).all() and (d[:, kk:] == sentinel).all(),
                   f"hamming_scan_topk != oracle at {e_w, e_q, e_n, valid_n}")
+    n_sub_shapes = 0
     for e_w in range(1, 9):
         for e_n, groups, cm, e_q, fill in MIN2_EDGES:
             e_pq = words(e_q, e_w)
@@ -1263,12 +1269,25 @@ def main() -> None:
                 e_pq = e_pq[:1].expand(e_q, e_w).contiguous()
             e_gg = to_grouped_layout(e_packed, groups, cm)
             _, e_L, e_C = e_gg.shape
+            e_stride = e_L * e_C + 1
+            e_sigmas = sorted({s for s in SIGMAS + (e_L,) if e_L % s == 0})
             for valid_n in (e_n, e_L * e_C, e_n // 3, 0):
+                edge = (e_w, e_n, groups, cm, e_q, fill, valid_n)
                 check(all(torch.equal(a, b) for a, b in zip(
                     groupmin_scan(e_pq, e_gg, valid_n),
                     groupmin_scan_torch(e_pq, e_gg, valid_n))),
-                    f"min2 scan != plain at edge case "
-                    f"{e_w, e_n, groups, cm, e_q, fill, valid_n}")
+                    f"min2 scan != plain at edge case {edge}")
+                check(torch.equal(mxu_groupmin_scan(e_pq, e_gg, valid_n),
+                                  mxu_groupmin_scan_torch(e_pq, e_gg, valid_n)),
+                      f"column-min scan != plain at edge case {edge}")
+                for sigma in e_sigmas:
+                    check(torch.equal(
+                        mxu_subgroupmin_scan(e_pq, e_gg, valid_n, e_stride,
+                                             sigma),
+                        subgroupmin_scan_keys_torch(e_pq, e_gg, valid_n,
+                                                    e_stride, sigma)),
+                        f"subgroup scan != plain at edge case {edge, sigma}")
+            n_sub_shapes += len(e_sigmas)
     same = torch.full((9, 2), 0x55555555, dtype=torch.int32, device=dev)
     same_g = torch.full((2, 3001), 0x55555555, dtype=torch.int32, device=dev)
     check(torch.equal(hamming_distance_t(same, same_g),
@@ -1290,7 +1309,9 @@ def main() -> None:
     print("phase 3 kernels: bit-identical to their plain versions at the "
           f"main-path shapes (kernel 8 on the int8 and the bf16 pm8 copy), "
           f"{len(EDGE_CASES)} scan, {len(HAMMING_EDGES) + 1} Hamming and "
-          f"{8 * len(MIN2_EDGES)} min2 (W = 1..8) edge shapes; the large-k and repair engines and hamming_scan_topk == "
+          f"{8 * len(MIN2_EDGES)} min2 and column-min (W = 1..8) edge "
+          f"shapes, and kernel 5 at {n_sub_shapes} (shape, sigma) "
+          "pairs of them; each at 4 valid_n; the large-k and repair engines and hamming_scan_topk == "
           "numpy oracle at the edges, hamming_scan_topk == mxu_topk for 64 "
           "config5 queries; rescan at sigma 16 (256 x 1,000 winner "
           f"subgroups) {sigma_ms:.4f} ms; kernel 8 (ms / torch._int_mm ms / "

@@ -2,85 +2,98 @@
 // grouped (W, L, C) gallery, the float32 key
 //   d * L + s  (+ 2^22 when every item of the column is padding)
 // of the column's smallest item in the (padding?, d, s) order
-// (column_scan.cuh); the key is an integer below 2^24, so float32 holds it
+// (grouped_scan.cuh); the key is an integer below 2^24, so float32 holds it
 // exactly.
 //
 // Replaces: hashgan_tpu/ops/mxu_scan.py, mxu_groupmin_scan ->
 // _mxu_groupmin_kernel (line 208). The TPU kernel computes
 // key = base - (L/2) * q.g with base = B*L/2 + s (+2^22 on padding) from a
-// +-1 bf16 MXU matmul, which is d*L + s (+2^22) exactly; here d is
-// XOR + popcount on the packed words and the key base is computed from
+// +-1 bf16 MXU matmul, which is d*L + s (+2^22) exactly; here the same
+// product runs on the int8 tensor cores and the key base is computed from
 // valid_n instead of being read.
 //
 // Bound on the H100: the Q*N distances as the +-1 int8 tensor-core product,
 // 2*Q*N*B operations (35 us for 256 queries x 1M items x 128 bits at 1,979
-// TOP/s); the (Q, C) output is 8 MB at that shape. This kernel takes the
-// distances from XOR + __popc on the CUDA cores (Q*N*W popcounts), as the
-// full-key scan (mxu_fullkey_scan.cu) does, and that is what holds it.
-// Design: the full-key scan's column loop, one thread per column and 32
-// queries per block; padding items are scanned too (flagged) so an all-pad
-// column yields the same key as the TPU kernel.
-#include "column_scan.cuh"
+// TOP/s); the packed gallery (16 MB at that shape) stays in L2 and the
+// (Q, C) output is 8 MB. After the products, each (query, item) key costs
+// an IMAD and a min on the integer pipe, which is what holds this kernel.
+//
+// Design: the int8 tensor-core walk of grouped_scan.cuh, two m-tiles of 16
+// queries a warp (256 queries a block) at every W, with one running
+// minimum per element; each (query, column) minimum is decoded into the
+// float key once at the end.
+#include "grouped_scan.cuh"
 
 namespace {
 
-using namespace colscan;
+using namespace gscan;
 
+constexpr int kMT = 2;
 constexpr int kPadPenalty = 1 << 22;
 
-template <int W>
-__global__ void __launch_bounds__(kCols)
-groupmin_scan_kernel(const int32_t* __restrict__ q,
-                     const int32_t* __restrict__ gallery,
-                     float* __restrict__ out, int nq, int L, int C,
-                     int valid_n) {
-  __shared__ uint32_t qs[kQueries * W];
-  const int q0 = blockIdx.y * kQueries;
-  stage_queries<W>(qs, q, q0, nq);
-  const int c = blockIdx.x * kCols + threadIdx.x;
-  if (c >= C) return;
+struct Min1 {
+  int (&b1)[kMT][kNT][4];
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int m = 0; m < kMT; ++m)
+#pragma unroll
+      for (int t = 0; t < kNT; ++t)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) b1[m][t][r] = kNone;
+  }
+  __device__ __forceinline__ void key(int m, int t, int r, int k) {
+    b1[m][t][r] = min(b1[m][t][r], k);
+  }
+  __device__ __forceinline__ void row_done(int) {}
+};
 
-  int best[kQueries];
-#pragma unroll
-  for (int t = 0; t < kQueries; ++t) best[t] = kNone;
-  for (int s = 0; s < L; ++s) {
-    uint32_t g[W];
-    load_item<W>(g, gallery, L, C, s, c);
-    const int base = (s * C + c >= valid_n ? kPadFlag : 0) | s;
-#pragma unroll
-    for (int t = 0; t < kQueries; ++t)
-      best[t] = min(best[t], base | (distance<W>(g, qs + t * W) << 16));
-  }
-#pragma unroll
-  for (int t = 0; t < kQueries; ++t) {
-    const int qi = q0 + t;
-    if (qi >= nq) break;
-    const int b = best[t];
-    const int key =
-        (local_is_pad(b) ? kPadPenalty : 0) + local_d(b) * L + local_s(b);
-    out[static_cast<int64_t>(qi) * C + c] = static_cast<float>(key);
-  }
+__device__ __forceinline__ float column_key(int local, int L) {
+  return static_cast<float>((local_is_pad(local) ? kPadPenalty : 0) +
+                            local_d(local) * L + local_s(local));
 }
 
 template <int W>
-void launch(const int32_t* q, const int32_t* g, float* out, int nq, int L,
-            int C, int valid_n, cudaStream_t stream) {
-  const dim3 grid((C + kCols - 1) / kCols, (nq + kQueries - 1) / kQueries);
-  groupmin_scan_kernel<W><<<grid, kCols, 0, stream>>>(q, g, out, nq, L, C,
-                                                      valid_n);
+__global__ void __launch_bounds__(kThreads, 1)
+groupmin_scan_mma_kernel(const int32_t* __restrict__ q,
+                         const int32_t* __restrict__ gallery,
+                         float* __restrict__ out, int nq, int L, int C,
+                         int valid_n, bool wide) {
+  const Lanes<kMT> ln;
+  int b1[kMT][kNT][4];
+  Min1 epi{b1};
+  if (!walk_strip<W, kMT>(q, gallery, nq, L, C, valid_n, wide, ln, epi))
+    return;
+
+#pragma unroll
+  for (int m = 0; m < kMT; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qi = ln.query(m, h);
+      if (qi >= nq) continue;
+      float* row = out + static_cast<int64_t>(qi) * C;
+#pragma unroll
+      for (int t = 0; t < kNT; ++t)
+        store_pair<false>(row, ln.col_lane + 8 * t, C,
+                          column_key(epi.b1[m][t][2 * h], L),
+                          column_key(epi.b1[m][t][2 * h + 1], L));
+    }
 }
 
 }  // namespace
 
 // q (nq, W) packed queries; gallery (W, L, C); out (nq, C) float32. The
-// caller guarantees 1 <= W <= 8 and (32W + 1) * L < 2^22.
+// caller guarantees 1 <= W <= 8, L <= 65536, nq <= 65535 * 256 and
+// (32W + 1) * L < 2^22.
 extern "C" int hg_groupmin_scan(const void* q, const void* gallery, void* out,
                                 int nq, int W, int L, int C, int valid_n,
                                 void* stream) {
-  auto* qp = static_cast<const int32_t*>(q);
   auto* gp = static_cast<const int32_t*>(gallery);
-  auto* op = static_cast<float*>(out);
-  auto st = static_cast<cudaStream_t>(stream);
-  COLSCAN_DISPATCH_W(W, launch, qp, gp, op, nq, L, C, valid_n, st)
-  return static_cast<int>(cudaGetLastError());
+  return dispatch_words(W, [&](auto w) {
+    constexpr int kW = decltype(w)::value;
+    return launch<kW, kMT>(groupmin_scan_mma_kernel<kW>, nq, C,
+                           static_cast<cudaStream_t>(stream),
+                           static_cast<const int32_t*>(q), gp,
+                           static_cast<float*>(out), nq, L, C, valid_n,
+                           wide_rows(gp, C));
+  });
 }

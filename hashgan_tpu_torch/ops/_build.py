@@ -205,6 +205,13 @@ def check_words(packed_q: torch.Tensor, words: int) -> None:
             f"queries have {packed_q.shape[1]} words, gallery {words}")
 
 
+def check_queries(q: int, limit: int) -> None:
+    """Checks a query count against what a scan kernel's grid takes."""
+    if q > limit:
+        raise ValueError(f"the scan kernel takes at most {limit} queries "
+                         f"per call, got {q}")
+
+
 def require_cuda_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
                         ndim: int) -> None:
     """Checks a kernel argument (the C side trusts what it is given)."""

@@ -36,7 +36,7 @@ INT32_MAX = 2**31 - 1
 # puts exactly the galleries the reference does on the grouped layout.
 PAD_BASE = 1_000_000_000
 
-MAX_QUERIES = 65535 * 128  # the scan kernel's grid: 128 or 256 queries a row
+MAX_QUERIES = 65535 * 128  # kernel 7's grid: 128 or 256 queries a row
 
 
 def layout_columns(n: int, groups: int = 128, col_multiple: int = 256) -> int:
@@ -127,9 +127,7 @@ def groupmin_scan(packed_q: torch.Tensor, gallery_g: torch.Tensor,
         return groupmin_scan_torch(packed_q, gallery_g, valid_n)
     if L > 65536:
         raise ValueError(f"the scan kernel takes at most 65536 groups, got {L}")
-    if q > MAX_QUERIES:
-        raise ValueError(f"the scan kernel takes at most {MAX_QUERIES} "
-                         f"queries per call, got {q}")
+    _build.check_queries(q, MAX_QUERIES)
     _build.require_cuda_tensor(packed_q, "packed_q", torch.int32, 2)
     _build.require_cuda_tensor(gallery_g, "gallery_g", torch.int32, 3)
     min1 = torch.empty((q, c), dtype=torch.int32, device=gallery_g.device)

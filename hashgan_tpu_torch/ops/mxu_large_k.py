@@ -44,6 +44,7 @@ import torch
 
 from hashgan_tpu_torch.ops import _build
 from hashgan_tpu_torch.ops.mxu_scan import (
+    GROUPED_MAX_QUERIES,
     PAD_PENALTY,
     _twolevel_topk_min,
     check_mode,
@@ -65,12 +66,16 @@ def _subgroup_full_keys(min_sub: torch.Tensor, L: int, c: int, stride: int,
                         bits: int) -> torch.Tensor:
     """(Q, R, C) subgroup-min local keys d*L + s (+2**22 on all-padding
     subgroups; float32 or int32) -> (Q, R*C) DISTINCT int32 composite keys
-    d*stride + s*C + col, and (bits + 1)*stride + s*C + col for padding."""
+    d*stride + s*C + col, and (bits + 1)*stride + s*C + col for padding.
+    The reference takes s = key % L before removing the 2**22, which holds
+    only where L divides 2**22; s is taken after it here, so the padding
+    keys name their own row at every L (L = 300: the reference's are 4 rows
+    off) and equal the reference's wherever L is a power of two."""
     q, r, _ = min_sub.shape
     key = min_sub.reshape(q, r * c).to(torch.int64)
     is_pad = key >= PAD_PENALTY
-    s = key % L  # PAD_PENALTY is a multiple of L, so % L survives padding
-    d = (key - torch.where(is_pad, PAD_PENALTY, 0)) // L
+    key = key - torch.where(is_pad, PAD_PENALTY, 0)
+    s, d = key % L, key // L
     cols = torch.arange(r * c, dtype=torch.int64, device=key.device) % c
     idx = s * c + cols
     return torch.where(is_pad, (bits + 1) * stride + idx,
@@ -109,9 +114,10 @@ def mxu_subgroupmin_scan(packed_q: torch.Tensor, gallery_g: torch.Tensor,
                                            stride, sigma)
     if L > 65536:
         raise ValueError(f"the scan kernel takes at most 65536 groups, got {L}")
+    q = packed_q.shape[0]
+    _build.check_queries(q, GROUPED_MAX_QUERIES)
     _build.require_cuda_tensor(packed_q, "packed_q", torch.int32, 2)
     _build.require_cuda_tensor(gallery_g, "gallery_g", torch.int32, 3)
-    q = packed_q.shape[0]
     out = torch.empty((q, (L // sigma) * c), dtype=torch.int32,
                       device=gallery_g.device)
     if out.numel():

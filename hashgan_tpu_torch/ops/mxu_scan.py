@@ -63,6 +63,8 @@ MODES = ("exact", "approx")
 # get +2**22, above every valid key (< (bits + 1) * L) and still exact in
 # float32 (reference ``mxu_scan.py:50``).
 PAD_PENALTY = 1 << 22
+# The grid of kernels 5 and 6 (csrc/grouped_scan.cuh): 256 queries a row.
+GROUPED_MAX_QUERIES = 65535 * 256
 
 
 def check_mode(mode: str) -> None:
@@ -275,9 +277,10 @@ def mxu_groupmin_scan(packed_q: torch.Tensor, gallery_g: torch.Tensor,
         return mxu_groupmin_scan_torch(packed_q, gallery_g, valid_n)
     if L > 65536:
         raise ValueError(f"the scan kernel takes at most 65536 groups, got {L}")
+    q = packed_q.shape[0]
+    _build.check_queries(q, GROUPED_MAX_QUERIES)
     _build.require_cuda_tensor(packed_q, "packed_q", torch.int32, 2)
     _build.require_cuda_tensor(gallery_g, "gallery_g", torch.int32, 3)
-    q = packed_q.shape[0]
     out = torch.empty((q, c), dtype=torch.float32, device=gallery_g.device)
     if out.numel():
         _build.KERNELS.launch(

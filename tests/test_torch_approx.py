@@ -55,7 +55,7 @@ def _oracle(pq, packed, k):
 
 
 SHAPES = [(32, 700, 9, 8), (48, 1200, 5, 8), (128, 500, 7, 16),
-          (64, 10, 3, 8)]
+          (64, 10, 3, 8), (96, 900, 6, 16), (256, 600, 3, 32)]
 
 
 @pytest.mark.parametrize("bits,n,q,groups", SHAPES)

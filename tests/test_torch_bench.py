@@ -127,6 +127,19 @@ def test_variants_script_on_cpu():
     assert out["device"]["platform"] == "cpu"
 
 
+def test_grouped_scans_script_on_cpu():
+    """Kernels 5-7's timing script at a toy size: every scan held against
+    its plain twin, a time for each and for the library call."""
+    sys.path.insert(0, REPO)
+    from scripts.bench_grouped_scans_torch import run
+
+    out = run("cpu", n=4096, queries=9, bits=64, reps=1, runs=1)
+    assert (out["groups"], out["columns"], out["sigma"]) == (128, 256, 16)
+    assert set(out["device_ms"]) == {"subgroupmin_scan", "groupmin_scan",
+                                     "groupmin_min2", "bf16_matmul"}
+    assert all(t["min_ms"] > 0 for t in out["device_ms"].values())
+
+
 def test_entry_matches_jax_entry():
     """AlexNet 48-bit on 8 images of 64x64: the JAX entry()'s weights
     carried over, the same images, equal packed words."""

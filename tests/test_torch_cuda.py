@@ -138,8 +138,10 @@ def test_grouped_scan_kernels_5_to_7_match_plain(dev, bits, n, groups):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("bits", [32, 64, 96, 128, 160, 192, 224, 256])
-@pytest.mark.parametrize("n,groups,cm,nq,fill", [
+# Kernels 5-7 at the edges of their tiling: (items, groups, column multiple,
+# queries, fill). Each test runs every row at W = 1..8 and valid_n = n,
+# L*C, n // 3 and 0 (padding items and all-padding columns).
+GROUPED_EDGES = [
     (700, 8, 16, 1, None),        # C = 96: a full and a half strip
     (700, 8, 16, 7, None),        # queries that fill no m-tile,
     (3000, 16, 16, 33, None),     # no warp, no block, or one block
@@ -153,14 +155,11 @@ def test_grouped_scan_kernels_5_to_7_match_plain(dev, bits, n, groups):
     (1100, 520, 1, 7, None),      # L = 520, C = 3
     (3000, 16, 16, 40, "same"),   # d = 0 everywhere: s = 0 and s = 1
     (3000, 16, 16, 40, "complement"),  # d = B everywhere
-])
-def test_min2_kernel_matches_plain(dev, bits, n, groups, cm, nq, fill):
-    """Kernel 7 (mma.sync s8) at W = 1..8 against its plain twin: query
-    counts around the 16-query m-tile, the warp and the 256-query block,
-    column counts that leave a partial strip, one group and hundreds,
-    padding items and all-padding columns (valid_n = n, L*C, n // 3 and 0),
-    and galleries of equal items, where min2 must be the next s and not a
-    copy of min1."""
+]
+
+
+def _edge_inputs(dev, bits, n, groups, cm, nq, fill):
+    """Packed queries and the grouped gallery of one GROUPED_EDGES row."""
     g = torch.Generator(device=dev).manual_seed(bits * 7 + n + nq)
     q = pack_codes(torch.randn(nq, bits, device=dev, generator=g))
     if fill is None:
@@ -168,7 +167,19 @@ def test_min2_kernel_matches_plain(dev, bits, n, groups, cm, nq, fill):
     else:
         q = q[:1].expand(nq, bits // 32).contiguous()
         packed = (q[:1] if fill == "same" else ~q[:1]).expand(n, bits // 32)
-    gg = gm.to_grouped_layout(packed.contiguous(), groups, cm)
+    return q, gm.to_grouped_layout(packed.contiguous(), groups, cm)
+
+
+@pytest.mark.parametrize("bits", [32, 64, 96, 128, 160, 192, 224, 256])
+@pytest.mark.parametrize("n,groups,cm,nq,fill", GROUPED_EDGES)
+def test_min2_kernel_matches_plain(dev, bits, n, groups, cm, nq, fill):
+    """Kernel 7 (mma.sync s8) at W = 1..8 against its plain twin: query
+    counts around the 16-query m-tile, the warp and the 256-query block,
+    column counts that leave a partial strip, one group and hundreds,
+    padding items and all-padding columns (valid_n = n, L*C, n // 3 and 0),
+    and galleries of equal items, where min2 must be the next s and not a
+    copy of min1."""
+    q, gg = _edge_inputs(dev, bits, n, groups, cm, nq, fill)
     _, L, c = gg.shape
     for valid_n in (n, L * c, n // 3, 0):
         got = _counted("groupmin_min2",
@@ -180,6 +191,43 @@ def test_min2_kernel_matches_plain(dev, bits, n, groups, cm, nq, fill):
             keys = torch.where(idx < valid_n, idx, idx + gm.PAD_BASE)
             assert torch.equal(got[0], keys[0].expand(nq, c))
             assert torch.equal(got[1], keys[1].expand(nq, c))
+
+
+@pytest.mark.parametrize("bits", [32, 64, 96, 128, 160, 192, 224, 256])
+@pytest.mark.parametrize("n,groups,cm,nq,fill", GROUPED_EDGES)
+def test_subgroupmin_kernel_matches_plain(dev, bits, n, groups, cm, nq, fill):
+    """Kernel 5 (mma.sync s8) at W = 1..8 and every sigma in {1, 2, 16, L}
+    that divides L, against its plain twin: subgroups that cross the
+    64 / W-row chunks, the edge rows of kernel 7, and galleries of equal
+    items, where each key must name the first s of its subgroup."""
+    q, gg = _edge_inputs(dev, bits, n, groups, cm, nq, fill)
+    _, L, c = gg.shape
+    stride = L * c + 1
+    for valid_n in (n, L * c, n // 3, 0):
+        for sigma in sorted({s for s in (1, 2, 16, L) if L % s == 0}):
+            got = _counted("subgroupmin_scan", lambda: lk.mxu_subgroupmin_scan(
+                q, gg, valid_n, stride, sigma))
+            assert torch.equal(got, lk.subgroupmin_scan_keys_torch(
+                q, gg, valid_n, stride, sigma)), (valid_n, sigma)
+            if fill == "same":  # d = 0 or all tied: the first s
+                first = torch.arange(0, L, sigma, device=dev).repeat_interleave(c)
+                assert torch.equal((got.long() % stride) // c,
+                                   first.expand(nq, -1))
+
+
+@pytest.mark.parametrize("bits", [32, 64, 96, 128, 160, 192, 224, 256])
+@pytest.mark.parametrize("n,groups,cm,nq,fill", GROUPED_EDGES)
+def test_groupmin_scan_kernel_matches_plain(dev, bits, n, groups, cm, nq, fill):
+    """Kernel 6 (mma.sync s8) at W = 1..8 against its plain twin at the edge
+    rows of kernel 7; on galleries of equal items every key has s = 0."""
+    q, gg = _edge_inputs(dev, bits, n, groups, cm, nq, fill)
+    _, L, c = gg.shape
+    for valid_n in (n, L * c, n // 3, 0):
+        got = _counted("groupmin_scan",
+                       lambda: ms.mxu_groupmin_scan(q, gg, valid_n))
+        assert torch.equal(got, ms.mxu_groupmin_scan_torch(q, gg, valid_n))
+        if fill == "same":
+            assert ((got.long() % ms.PAD_PENALTY) % L == 0).all()
 
 
 @pytest.mark.parametrize("bits", [32, 64, 96, 128, 160, 192, 224, 256])
@@ -331,6 +379,12 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(dev):
         lk.mxu_subgroupmin_scan(q[:, :0], gg, 100, 1000)
     with pytest.raises(ValueError, match="int32"):
         gm.groupmin_scan(q.long(), gg, 100)
+    many = torch.zeros((ms.GROUPED_MAX_QUERIES + 1, 1), dtype=torch.int32,
+                       device=dev)
+    with pytest.raises(ValueError, match="queries"):
+        lk.mxu_subgroupmin_scan(many, gg, 100, 1000, 2)
+    with pytest.raises(ValueError, match="queries"):
+        ms.mxu_groupmin_scan(many, gg, 100)
     gpm = torch.ones((34, 1, 8, 16), dtype=torch.int8, device=dev)
     kb = ms.build_key_base_i32(8, 16, 34, 100, dev)
     with pytest.raises(ValueError, match="multiples of 4"):

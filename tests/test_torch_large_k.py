@@ -50,10 +50,13 @@ def _oracle_check(d, i, pq, packed, k):
                                   np.take_along_axis(d_full, order, axis=1))
 
 
-# (bits, n, queries, groups, sigma): W = 1, 2 (48-bit padding), 4; L = 8
-# and 16; a gallery whose tail columns and subgroups hold only padding.
+# (bits, n, queries, groups, sigma): W = 1, 2 (48-bit padding), 3, 4, 5, 8;
+# L = 8, 16 and 32; a gallery whose tail columns and subgroups hold only
+# padding; sigma = 1, and subgroups across the card kernel's 21- and
+# 12-row chunks (W = 3, 5).
 SCAN_SHAPES = [(32, 700, 9, 8, 2), (48, 1200, 5, 8, 4), (128, 500, 7, 16, 16),
-               (64, 10, 3, 8, 8), (32, 300, 4, 16, 4)]
+               (64, 10, 3, 8, 8), (32, 300, 4, 16, 4), (96, 900, 6, 16, 1),
+               (160, 1000, 5, 32, 16), (256, 600, 3, 32, 8)]
 
 
 @pytest.mark.parametrize("bits,n,q,groups,sigma", SCAN_SHAPES)
@@ -73,6 +76,34 @@ def test_subgroupmin_scan_matches_jax(bits, n, q, groups, sigma):
         got = port.mxu_subgroupmin_scan(_t(pq), _t(gg), valid_n, stride, sigma)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
         assert len(np.unique(got.numpy()[0])) == got.shape[1]  # distinct
+
+
+@pytest.mark.parametrize("groups,sigma", [(300, 1), (300, 2), (520, 8)])
+def test_subgroup_padding_keys_name_their_row(groups, sigma):
+    """At an L that does not divide 2**22, every key (all-padding subgroups
+    included) is (d or bits + 1) * stride + s*C + c of the subgroup's
+    smallest (padding?, d, s) item: the numpy brute force."""
+    rng = np.random.default_rng(groups + sigma)
+    codes = _pm1(rng, 700, 64)
+    packed = pack_codes_np(codes)
+    gg = to_grouped_layout(packed, groups=groups, col_multiple=1)
+    pq = pack_codes_np(_pm1(rng, 5, 64))
+    w, L, c = gg.shape
+    stride, bits = L * c + 1, 32 * w
+    canon = np.zeros((L * c, w), np.uint32)
+    canon[:700] = packed
+    d = hamming_distance_np(pq, canon).astype(np.int64).reshape(5, L, c)
+    s = np.arange(L)[None, :, None]
+    for valid_n in (700, 700 // 3, 0):
+        pad = (s * c + np.arange(c)[None, None, :]) >= valid_n
+        local = (pad * (1 << 30) + d * (1 << 16) + s).reshape(
+            5, L // sigma, sigma, c).min(axis=2)
+        ls, ld = local % (1 << 16), (local >> 16) % (1 << 14)
+        want = (np.where(local >= 1 << 30, bits + 1, ld) * stride
+                + ls * c + np.arange(c)[None, None, :]).reshape(5, -1)
+        got = port.mxu_subgroupmin_scan(_t(pq), _t(gg), valid_n, stride,
+                                        sigma)
+        np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("bits,n,q,groups,sigma", SCAN_SHAPES)
