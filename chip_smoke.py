@@ -79,13 +79,14 @@ HAMMING_EDGES = (
     (4, 40, 5, 2, 8, 2),
     (5, 9, 777, 1, 50, 300),
 )
-# Kernels 5-7 at the edges of their tiling, each at W = 1..8: (items,
-# groups, column multiple, queries, fill). Query counts around the 16-query
-# m-tile and the 256-query block; C = 96, 80 and 87 cut a 64-column strip
-# (87 is odd: 4-byte staging copies); one group (min2 = INT32_MAX); columns
-# 10..15 hold only padding; "same" and "complement" make every distance 0
-# or B, so min2 must be the next s and not a copy of min1. Kernel 5 runs
-# each row at every sigma in SIGMAS that divides L.
+# Kernels 2, 5-7 and 9 at the edges of their tiling, each at W = 1..8:
+# (items, groups, column multiple, queries, fill). Query counts around the
+# 16-query m-tile and the 128- and 256-query blocks; C = 96, 80 and 87 cut
+# a 64-column strip (87 is odd: 4-byte staging copies); one group (min2 =
+# INT32_MAX); L = 300 and 520 rows cut the chunks; columns 10..15 hold only
+# padding; "same" and "complement" make every distance 0 or B, so min2 must
+# be the next s and not a copy of min1. Kernel 5 runs each row at every
+# sigma in SIGMAS that divides L.
 MIN2_EDGES = (
     (700, 8, 16, 1, None),
     (700, 8, 16, 7, None),
@@ -96,6 +97,8 @@ MIN2_EDGES = (
     (10, 8, 16, 9, None),
     (700, 1, 16, 7, None),
     (695, 8, 1, 40, None),
+    (3000, 300, 1, 33, None),
+    (1100, 520, 1, 7, None),
     (3000, 16, 16, 40, "same"),
     (3000, 16, 16, 40, "complement"),
 )
@@ -165,7 +168,7 @@ def bound(bytes_moved: float, ops: float, ops_per_s: float) -> dict:
 def ptxas_usage(log: str, kernel: str) -> dict:
     """Registers and spill bytes of each instantiation ``kernel<W>`` from
     the ``-Xptxas=-v`` build log: {W: (registers, spill stores, spill
-    loads)}. Read only when the library was compiled in this run."""
+    loads)}. Read from the log kept beside the library."""
     out, fn, spills = {}, None, None
     for line in log.splitlines():
         if "Function properties for " in line:
@@ -394,8 +397,11 @@ def kernels_5_to_8(torch, pq, gg, bg, n, lib_ms):
     check(torch.equal(ms.mxu8_groupmin_scan(qb, gpm, kbf),
                       ms.mxu8_groupmin_scan_torch(qb, gpm, kbf)),
           "pm8 scan != plain on the bf16 copy")
+    flat = gpm.view(32 * w, -1)  # the yardstick: a bf16 matmul of the operands
     pm8["bf16"] = {"ms": device_ms(torch, lambda: ms.mxu8_groupmin_scan(
-        qb, gpm, kbf), 3), **bound(
+        qb, gpm, kbf), 3),
+        "library_ms": device_ms(torch, lambda: torch.matmul(qb, flat), 5),
+        **bound(
         qb.numel() * 2 + gpm.numel() * 2 + kbf.numel() * 4 + full_bytes(q, c),
         distance_ops(q * L * c, 32 * w), BF16_PER_S)}
     return stats, sigma_ms, pm8
@@ -1012,11 +1018,13 @@ def main() -> None:
     nvcc = ("library reused from csrc/build" if lib.build_seconds is None
             else f"nvcc {lib.build_seconds:.2f} s")
     usage = {k: ptxas_usage(lib.build_log, fn) for k, fn in (
+        ("kernel 2", "fullkey_scan_s8_kernel"),
         ("kernel 5", "subgroupmin_mma_kernel"),
         ("kernel 6", "groupmin_scan_mma_kernel"),
         ("kernel 7", "groupmin_min2_mma_kernel"),
-        ("kernel 8 int8", "pm_int8_mma_kernel"))}
-    for k in ("kernel 5", "kernel 6", "kernel 7"):
+        ("kernel 8 int8", "pm_int8_mma_kernel"),
+        ("kernel 9", "fullkey_scan_f16_kernel"))}
+    for k in ("kernel 2", "kernel 5", "kernel 6", "kernel 7", "kernel 9"):
         check(len(usage[k]) == 8 and not any(
             st or ld for _, st, ld in usage[k].values()),
             f"{k} spills or is missing from the build log: {usage}")
@@ -1258,7 +1266,7 @@ def main() -> None:
             check((i[:, :kk] == oi).all() and (d[:, :kk] == od).all()
                   and (i[:, kk:] == tail).all() and (d[:, kk:] == sentinel).all(),
                   f"hamming_scan_topk != oracle at {e_w, e_q, e_n, valid_n}")
-    n_sub_shapes = 0
+    n_sub_shapes = n_full_cases = 0
     for e_w in range(1, 9):
         for e_n, groups, cm, e_q, fill in MIN2_EDGES:
             e_pq = words(e_q, e_w)
@@ -1273,6 +1281,14 @@ def main() -> None:
             e_sigmas = sorted({s for s in SIGMAS + (e_L,) if e_L % s == 0})
             for valid_n in (e_n, e_L * e_C, e_n // 3, 0):
                 edge = (e_w, e_n, groups, cm, e_q, fill, valid_n)
+                e_plain = fullkey_scan_keys_torch(e_pq, e_gg, valid_n, e_stride)
+                check(torch.equal(fullkey_scan_keys(e_pq, e_gg, valid_n,
+                                                    e_stride), e_plain),
+                      f"scan != plain at edge case {edge}")
+                check(torch.equal(fullkey_scan_bf16(e_pq, e_gg, valid_n,
+                                                    e_stride), e_plain),
+                      f"tensor-core scan != plain at edge case {edge}")
+                n_full_cases += 1
                 check(all(torch.equal(a, b) for a, b in zip(
                     groupmin_scan(e_pq, e_gg, valid_n),
                     groupmin_scan_torch(e_pq, e_gg, valid_n))),
@@ -1309,9 +1325,11 @@ def main() -> None:
     print("phase 3 kernels: bit-identical to their plain versions at the "
           f"main-path shapes (kernel 8 on the int8 and the bf16 pm8 copy), "
           f"{len(EDGE_CASES)} scan, {len(HAMMING_EDGES) + 1} Hamming and "
-          f"{8 * len(MIN2_EDGES)} min2 and column-min (W = 1..8) edge "
-          f"shapes, and kernel 5 at {n_sub_shapes} (shape, sigma) "
-          "pairs of them; each at 4 valid_n; the large-k and repair engines and hamming_scan_topk == "
+          f"{8 * len(MIN2_EDGES)} min2, column-min and full-key (W = 1..8) "
+          f"edge shapes, and kernel 5 at {n_sub_shapes} (shape, sigma) "
+          "pairs of them; each at 4 valid_n (kernels 2 and 9 at "
+          f"{n_full_cases} (shape, valid_n) cases each besides the "
+          f"{len(EDGE_CASES)} scan shapes); the large-k and repair engines and hamming_scan_topk == "
           "numpy oracle at the edges, hamming_scan_topk == mxu_topk for 64 "
           "config5 queries; rescan at sigma 16 (256 x 1,000 winner "
           f"subgroups) {sigma_ms:.4f} ms; kernel 8 (ms / torch._int_mm ms / "
@@ -1319,8 +1337,9 @@ def main() -> None:
           + "; ".join(f"int8 {k} queries {v['ms']:.4f} / {v['library_ms']} / "
                       f"{v['bound_ms']:.4f}" for k, v in pm8_ms.items()
                       if k != "bf16")
-          + f"; bf16 256 queries {pm8_ms['bf16']['ms']:.4f} (bound "
-          f"{pm8_ms['bf16']['bound_ms']:.4f}); kernel 4 (ms / plain / "
+          + f"; bf16 256 queries {pm8_ms['bf16']['ms']:.4f} / "
+          f"{pm8_ms['bf16']['library_ms']:.4f} (bf16 matmul) / "
+          f"{pm8_ms['bf16']['bound_ms']:.4f}; kernel 4 (ms / plain / "
           "torch._int_mm / bf16 matmul / fill of its output / bound): "
           + "; ".join(f"{s} {t['ms']:.4f} / {t['plain_ms']:.4f} / "
                       f"{t['library_ms']} / {t['bf16_ms']:.4f} / "

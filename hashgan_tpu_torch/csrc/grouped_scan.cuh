@@ -1,7 +1,9 @@
-// The scan skeleton of kernels 5, 6 and 7 (subgroupmin_scan.cu,
-// groupmin_scan.cu, groupmin_min2.cu): packed queries against the grouped
-// (W, L, C) gallery on the int8 tensor cores. Each kernel keeps only its
-// epilogue, the reduction of the local keys this walk hands it.
+// The scan skeleton of kernels 2, 5, 6 and 7 (mxu_fullkey_scan.cu,
+// subgroupmin_scan.cu, groupmin_scan.cu, groupmin_min2.cu): packed queries
+// against the grouped (W, L, C) gallery on the int8 tensor cores. Each
+// kernel keeps only its epilogue, the reduction of the local keys this walk
+// hands it. Kernel 9 (fullkey_scan_mma.cu) keeps its own f16 arithmetic and
+// shares the staging, the tiling, the lane map, the stores and the launch.
 //
 // The gallery is the grouped layout: item idx = s*C + c is word w at
 // [w, s, c]. Within a column every engine orders items by
@@ -268,6 +270,25 @@ __device__ __forceinline__ bool walk_strip(const int32_t* __restrict__ q,
   return active;
 }
 
+// The epilogue of kernels 2 and 6: one running minimum of the local key per
+// accumulator element, in arrays the kernel declares.
+template <int MT>
+struct Min1 {
+  int (&b1)[MT][kNT][4];
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int t = 0; t < kNT; ++t)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) b1[m][t][r] = kNone;
+  }
+  __device__ __forceinline__ void key(int m, int t, int r, int k) {
+    b1[m][t][r] = min(b1[m][t][r], k);
+  }
+  __device__ __forceinline__ void row_done(int) {}
+};
+
 // A lane's two adjacent columns c, c + 1 (c even) of one output row: one
 // 8-byte store where C is even (c < C then puts c + 1 in too), else a
 // 4-byte store for each column below C. kStream: evict-first (__stcs), so
@@ -288,17 +309,18 @@ __device__ __forceinline__ void store_pair(T* row, int c, int C, T v0, T v1) {
   if (c + 1 < C) row[c + 1] = v1;
 }
 
-// Launches kernel<<<(strips, query blocks), kThreads, smem>>>(args...)
-// after raising its dynamic shared memory limit; returns the CUDA error.
-template <int W, int MT, class... P, class... A>
+// Launches kernel<<<(strips, query blocks), kThreads, smem>>>(args...) at
+// the tiling T after raising its dynamic shared memory limit; returns the
+// CUDA error.
+template <class T, class... P, class... A>
 int launch(void (*kernel)(P...), int nq, int C, cudaStream_t stream,
            A... args) {
-  constexpr int smem = Tiling<W, MT>::kSmem;
+  constexpr int smem = T::kSmem;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((C + kCols - 1) / kCols,
-                  (nq + Tiling<W, MT>::kQueries - 1) / Tiling<W, MT>::kQueries);
+                  (nq + T::kQueries - 1) / T::kQueries);
   kernel<<<grid, kThreads, smem, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }

@@ -104,7 +104,7 @@ extern "C" int hg_groupmin_min2(const void* q, const void* gallery,
   auto* gp = static_cast<const int32_t*>(gallery);
   return dispatch_words(W, [&](auto w) {
     constexpr int kW = decltype(w)::value;
-    return launch<kW, kMT<kW>>(
+    return launch<Tiling<kW, kMT<kW>>>(
         groupmin_min2_mma_kernel<kW>, nq, C, static_cast<cudaStream_t>(stream),
         static_cast<const int32_t*>(q), gp, static_cast<int32_t*>(min1),
         static_cast<int32_t*>(min2), nq, L, C, valid_n, stride,

@@ -20,8 +20,8 @@
 //
 // Design: the int8 tensor-core walk of grouped_scan.cuh, two m-tiles of 16
 // queries a warp (256 queries a block) at every W, with one running
-// minimum per element; each (query, column) minimum is decoded into the
-// float key once at the end.
+// minimum per element (the skeleton's Min1, shared with kernel 2); each
+// (query, column) minimum is decoded into the float key once at the end.
 #include "grouped_scan.cuh"
 
 namespace {
@@ -30,22 +30,6 @@ using namespace gscan;
 
 constexpr int kMT = 2;
 constexpr int kPadPenalty = 1 << 22;
-
-struct Min1 {
-  int (&b1)[kMT][kNT][4];
-  __device__ __forceinline__ void init() {
-#pragma unroll
-    for (int m = 0; m < kMT; ++m)
-#pragma unroll
-      for (int t = 0; t < kNT; ++t)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) b1[m][t][r] = kNone;
-  }
-  __device__ __forceinline__ void key(int m, int t, int r, int k) {
-    b1[m][t][r] = min(b1[m][t][r], k);
-  }
-  __device__ __forceinline__ void row_done(int) {}
-};
 
 __device__ __forceinline__ float column_key(int local, int L) {
   return static_cast<float>((local_is_pad(local) ? kPadPenalty : 0) +
@@ -60,7 +44,7 @@ groupmin_scan_mma_kernel(const int32_t* __restrict__ q,
                          int valid_n, bool wide) {
   const Lanes<kMT> ln;
   int b1[kMT][kNT][4];
-  Min1 epi{b1};
+  Min1<kMT> epi{b1};
   if (!walk_strip<W, kMT>(q, gallery, nq, L, C, valid_n, wide, ln, epi))
     return;
 
@@ -90,10 +74,9 @@ extern "C" int hg_groupmin_scan(const void* q, const void* gallery, void* out,
   auto* gp = static_cast<const int32_t*>(gallery);
   return dispatch_words(W, [&](auto w) {
     constexpr int kW = decltype(w)::value;
-    return launch<kW, kMT>(groupmin_scan_mma_kernel<kW>, nq, C,
-                           static_cast<cudaStream_t>(stream),
-                           static_cast<const int32_t*>(q), gp,
-                           static_cast<float*>(out), nq, L, C, valid_n,
-                           wide_rows(gp, C));
+    return launch<Tiling<kW, kMT>>(
+        groupmin_scan_mma_kernel<kW>, nq, C, static_cast<cudaStream_t>(stream),
+        static_cast<const int32_t*>(q), gp, static_cast<float*>(out), nq, L,
+        C, valid_n, wide_rows(gp, C));
   });
 }

@@ -112,10 +112,9 @@ extern "C" int hg_subgroupmin_scan(const void* q, const void* gallery,
   auto* gp = static_cast<const int32_t*>(gallery);
   return dispatch_words(W, [&](auto w) {
     constexpr int kW = decltype(w)::value;
-    return launch<kW, kMT>(subgroupmin_mma_kernel<kW>, nq, C,
-                           static_cast<cudaStream_t>(stream),
-                           static_cast<const int32_t*>(q), gp,
-                           static_cast<int32_t*>(out), nq, L, C, sigma,
-                           valid_n, stride, pad_d, wide_rows(gp, C));
+    return launch<Tiling<kW, kMT>>(
+        subgroupmin_mma_kernel<kW>, nq, C, static_cast<cudaStream_t>(stream),
+        static_cast<const int32_t*>(q), gp, static_cast<int32_t*>(out), nq, L,
+        C, sigma, valid_n, stride, pad_d, wide_rows(gp, C));
   });
 }

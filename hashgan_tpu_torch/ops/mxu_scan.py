@@ -2,9 +2,9 @@
 approx mode and the +-1 (pm8) scan copy.
 
 Port of ``hashgan_tpu/ops/mxu_scan.py``. The algorithms are the reference's;
-only the distance arithmetic changes with the hardware (XOR + popcount on
-the packed words instead of a +-1 matmul, except for the pm8 copy, which is
-+-1 by construction).
+only the distance arithmetic changes with the hardware: the scans take the
+packed words and run the +-1 product on the int8 tensor cores (the rescan
+XORs and popcounts), and the plain twins XOR and popcount.
 
 Exact mode (``mxu_topk``, the k <= 256 engine):
 
@@ -63,7 +63,7 @@ MODES = ("exact", "approx")
 # get +2**22, above every valid key (< (bits + 1) * L) and still exact in
 # float32 (reference ``mxu_scan.py:50``).
 PAD_PENALTY = 1 << 22
-# The grid of kernels 5 and 6 (csrc/grouped_scan.cuh): 256 queries a row.
+# The grid of kernels 2, 5 and 6 (csrc/grouped_scan.cuh): 256 queries a row.
 GROUPED_MAX_QUERIES = 65535 * 256
 
 
@@ -204,8 +204,9 @@ def fullkey_scan_keys_torch(packed_q: torch.Tensor, gallery_g: torch.Tensor,
 def fullkey_scan_keys(packed_q: torch.Tensor, gallery_g: torch.Tensor,
                       valid_n: int, stride: int) -> torch.Tensor:
     """(Q, W) packed queries x (W, L, C) grouped gallery -> (Q, C) int32
-    full composite keys. CUDA tensors launch ``csrc/mxu_fullkey_scan.cu``;
-    CPU tensors run ``fullkey_scan_keys_torch``."""
+    full composite keys. CUDA tensors launch ``csrc/mxu_fullkey_scan.cu``
+    (the int8 tensor-core walk of kernel 6 with one running minimum, decoded
+    into the composite key); CPU tensors run ``fullkey_scan_keys_torch``."""
     w, L, c = gallery_g.shape
     _build.check_words(packed_q, w)
     if gallery_g.device.type == "cpu":
@@ -215,6 +216,7 @@ def fullkey_scan_keys(packed_q: torch.Tensor, gallery_g: torch.Tensor,
     _build.require_cuda_tensor(packed_q, "packed_q", torch.int32, 2)
     _build.require_cuda_tensor(gallery_g, "gallery_g", torch.int32, 3)
     q = packed_q.shape[0]
+    _build.check_queries(q, GROUPED_MAX_QUERIES)
     full = torch.empty((q, c), dtype=torch.int32, device=gallery_g.device)
     if full.numel():
         _build.KERNELS.launch(

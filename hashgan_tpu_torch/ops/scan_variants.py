@@ -6,10 +6,11 @@ matrix unit with a 16-bit accumulator. The port's counterpart,
 ``csrc/fullkey_scan_mma.cu``, runs it on Hopper's tensor cores as
 ``mma.sync`` with f16 operands and an f16 accumulator (the card gives bf16
 operands only a float32 accumulator), exact because every partial sum is an
-integer of magnitude at most B <= 256. It computes the same function as the
-exact scan of ``ops/mxu_scan.py`` (kernel 2), with kernel 2's interface, so a
-caller swaps one for the other in one line; its plain version is kernel 2's,
-``fullkey_scan_keys_torch``.
+integer of magnitude at most B <= 256, on the walk that kernel 2 runs with
+int8 operands (``csrc/grouped_scan.cuh``). It computes the same function as
+the exact scan of ``ops/mxu_scan.py`` (kernel 2), with kernel 2's interface,
+so a caller swaps one for the other in one line; its plain version is kernel
+2's, ``fullkey_scan_keys_torch``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,12 @@ import torch
 
 from hashgan_tpu_torch.ops import _build
 from hashgan_tpu_torch.ops.mxu_scan import fullkey_scan_keys_torch
+
+
+def max_queries(words: int) -> int:
+    """The kernel's grid: 65,535 block rows of 256 queries at <= 4 words, of
+    128 above."""
+    return 65535 * (256 if words <= 4 else 128)
 
 
 def fullkey_scan_bf16(packed_q: torch.Tensor, gallery_g: torch.Tensor,
@@ -37,6 +44,7 @@ def fullkey_scan_bf16(packed_q: torch.Tensor, gallery_g: torch.Tensor,
     _build.require_cuda_tensor(packed_q, "packed_q", torch.int32, 2)
     _build.require_cuda_tensor(gallery_g, "gallery_g", torch.int32, 3)
     q = packed_q.shape[0]
+    _build.check_queries(q, max_queries(w))
     full = torch.empty((q, c), dtype=torch.int32, device=gallery_g.device)
     if full.numel():
         _build.KERNELS.launch(

@@ -1,13 +1,15 @@
-"""Device time of kernels 5, 6 and 7, the grouped-layout scans of the large-k,
-approx and repair engines, on one NVIDIA GPU at the engines' main-path
-shape: 256 queries x 1,048,576 random items x 128 bits (L = 128 groups,
-C = 8,192 columns), sigma = 16 for kernel 5. Beside them the bf16 matmul of
-the unpacked +-1 codes, one PyTorch call that computes every distance the
-scans reduce. Each kernel is first held against its plain twin. Prints one
-JSON line: device ms per call (min and median over 5 runs of 20
-back-to-back calls between CUDA events, behind a sleep kernel that holds
-the stream while the host enqueues them), with the card's name and power
-limit.
+"""Device time of the grouped-layout scans on one NVIDIA GPU at the engines'
+main-path shape: 256 queries x 1,048,576 random items x 128 bits (L = 128
+groups, C = 8,192 columns). Kernels 5, 6 and 7 (the large-k, approx and
+repair engines' scans; sigma = 16 for kernel 5), kernel 2 (the exact
+engine's full-key scan, ``fullkey_scan_keys``) at 1, 16, 256 and 1,024
+queries, and kernel 9 (its f16 tensor-core variant, ``fullkey_scan_bf16``)
+at 256. Beside them the bf16 matmul of the unpacked +-1 codes, one PyTorch
+call that computes every distance the scans reduce. Each kernel is first
+held against its plain twin. Prints one JSON line: device ms per call (min
+and median over 5 runs of 20 back-to-back calls between CUDA events, behind
+a sleep kernel that holds the stream while the host enqueues them), with
+the card's name and power limit.
 
     python scripts/bench_grouped_scans_torch.py
 
@@ -35,6 +37,7 @@ sys.path.append(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from hashgan_tpu_torch.ops import groupmin as gm  # noqa: E402
 from hashgan_tpu_torch.ops import mxu_large_k as lk  # noqa: E402
 from hashgan_tpu_torch.ops import mxu_scan as ms  # noqa: E402
+from hashgan_tpu_torch.ops.scan_variants import fullkey_scan_bf16  # noqa: E402
 
 REPS, RUNS = 20, 5
 
@@ -73,13 +76,24 @@ def run(device=None, n: int = 1 << 20, queries: int = 256, bits: int = 128,
     gen = torch.Generator(device=dev).manual_seed(0)
     words = torch.randint(-2**31, 2**31 - 1, (n, w), dtype=torch.int32,
                           device=dev, generator=gen)
-    q = torch.randint(-2**31, 2**31 - 1, (queries, w), dtype=torch.int32,
-                      device=dev, generator=gen)
+    q4 = torch.randint(-2**31, 2**31 - 1, (4 * queries, w), dtype=torch.int32,
+                       device=dev, generator=gen)
+    q = q4[:queries]
     gg = gm.to_grouped_layout(words)
     _, L, c = gg.shape
     stride = L * c + 1
     sigma = min(lk.SIGMA, L)
+    # kernel 2 at a single query, a small batch, this batch and 4x it
+    full_key = {
+        f"mxu_fullkey_scan_{nq}q": (
+            lambda qn=q4[:nq]: ms.fullkey_scan_keys(qn, gg, n, stride),
+            lambda qn=q4[:nq]: ms.fullkey_scan_keys_torch(qn, gg, n, stride))
+        for nq in sorted({1, 16, queries, 4 * queries})}
     kernels = {
+        **full_key,
+        "fullkey_scan_mma": (
+            lambda: fullkey_scan_bf16(q, gg, n, stride),
+            lambda: ms.fullkey_scan_keys_torch(q, gg, n, stride)),
         "subgroupmin_scan": (
             lambda: lk.mxu_subgroupmin_scan(q, gg, n, stride, sigma),
             lambda: lk.subgroupmin_scan_keys_torch(q, gg, n, stride, sigma)),

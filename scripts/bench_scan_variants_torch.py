@@ -7,9 +7,10 @@ is checked bit for bit against the plain PyTorch version of the function
 (``ops/mxu_scan.py::fullkey_scan_keys_torch``), and so against each other,
 on a probe of 8 queries and on the whole first timed batch:
 
-  prod     kernel 2, ``csrc/mxu_fullkey_scan.cu``: XOR + popcount.
-  bf16dot  kernel 9, ``csrc/fullkey_scan_mma.cu``: the +-1 product on the
-           tensor cores (mma.sync, f16 operands and accumulator: Hopper's
+  prod     kernel 2, ``csrc/mxu_fullkey_scan.cu``: the +-1 product on the
+           int8 tensor cores (mma.sync s8, ``csrc/grouped_scan.cuh``).
+  bf16dot  kernel 9, ``csrc/fullkey_scan_mma.cu``: the same walk with f16
+           operands and an f16 accumulator (mma.sync: Hopper's
            narrow-accumulator product; the TPU's bf16 accumulator did not
            compile on a v5e).
   library  one bf16 ``torch.matmul`` of the unpacked +-1 codes, (Q, B) x

@@ -128,15 +128,18 @@ def test_variants_script_on_cpu():
 
 
 def test_grouped_scans_script_on_cpu():
-    """Kernels 5-7's timing script at a toy size: every scan held against
-    its plain twin, a time for each and for the library call."""
+    """The grouped scans' timing script at a toy size: kernels 5-7, kernel 2
+    at 1, 16, the batch and 4x it, and kernel 9, every scan held against its
+    plain twin, a time for each and for the library call."""
     sys.path.insert(0, REPO)
     from scripts.bench_grouped_scans_torch import run
 
     out = run("cpu", n=4096, queries=9, bits=64, reps=1, runs=1)
     assert (out["groups"], out["columns"], out["sigma"]) == (128, 256, 16)
-    assert set(out["device_ms"]) == {"subgroupmin_scan", "groupmin_scan",
-                                     "groupmin_min2", "bf16_matmul"}
+    assert set(out["device_ms"]) == {
+        "subgroupmin_scan", "groupmin_scan", "groupmin_min2", "bf16_matmul",
+        "fullkey_scan_mma", "mxu_fullkey_scan_1q", "mxu_fullkey_scan_9q",
+        "mxu_fullkey_scan_16q", "mxu_fullkey_scan_36q"}
     assert all(t["min_ms"] > 0 for t in out["device_ms"].values())
 
 

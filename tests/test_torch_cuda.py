@@ -138,9 +138,9 @@ def test_grouped_scan_kernels_5_to_7_match_plain(dev, bits, n, groups):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-# Kernels 5-7 at the edges of their tiling: (items, groups, column multiple,
-# queries, fill). Each test runs every row at W = 1..8 and valid_n = n,
-# L*C, n // 3 and 0 (padding items and all-padding columns).
+# Kernels 2, 5-7 and 9 at the edges of their tiling: (items, groups, column
+# multiple, queries, fill). Each test runs every row at W = 1..8 and
+# valid_n = n, L*C, n // 3 and 0 (padding items and all-padding columns).
 GROUPED_EDGES = [
     (700, 8, 16, 1, None),        # C = 96: a full and a half strip
     (700, 8, 16, 7, None),        # queries that fill no m-tile,
@@ -230,27 +230,59 @@ def test_groupmin_scan_kernel_matches_plain(dev, bits, n, groups, cm, nq, fill):
             assert ((got.long() % ms.PAD_PENALTY) % L == 0).all()
 
 
+def _full_keys_of_fill(fill, bits, valid_n, nq, L, c, stride, dev):
+    """The full keys of a GROUPED_EDGES gallery of equal items at valid_n <=
+    n (past n the layout's zero words count too): every distance is 0
+    ("same") or B ("complement"), so each column's key is its item s = 0, or
+    INT32_MAX where that item is padding."""
+    d = 0 if fill == "same" else bits
+    cols = torch.arange(c, device=dev, dtype=torch.int64)
+    keys = torch.where(cols < valid_n, d * stride + cols, gm.INT32_MAX)
+    return keys.to(torch.int32).expand(nq, c)
+
+
 @pytest.mark.parametrize("bits", [32, 64, 96, 128, 160, 192, 224, 256])
-@pytest.mark.parametrize("n,groups,nq", [(700, 8, 7), (10, 8, 300),
-                                         (3000, 16, 129), (5000, 64, 33)])
-def test_tensor_core_scan_matches_plain(dev, bits, n, groups, nq):
-    """Kernel 9 (mma.sync f16 scan) at W = 1..8: padding items, all-padding
-    columns (n = 10), a column count that is not a multiple of the block's
-    32 (C = 16), and query counts that leave whole warps and blocks idle;
-    identical to its plain version and to kernel 2."""
-    gal, _ = _gallery(dev, n, bits, seed=bits + 7 * n, groups=groups)
-    g = torch.Generator(device=dev).manual_seed(nq)
-    q = pack_codes(torch.randn(nq, bits, device=dev, generator=g))
-    q[0] = gal.packed_canonical[0]  # an exact hit: distance 0
-    gg = gal.gallery_grouped
+@pytest.mark.parametrize("n,groups,cm,nq,fill", GROUPED_EDGES)
+def test_fullkey_scan_kernel_matches_plain(dev, bits, n, groups, cm, nq, fill):
+    """Kernel 2 (mma.sync s8 on the skeleton) at W = 1..8 against its plain
+    twin at the edge rows of kernel 7: query counts around the m-tile, the
+    warp and the block, partial strips, L = 300 and 520, all-padding
+    columns, and galleries of equal items, where every key is item s = 0."""
+    q, gg = _edge_inputs(dev, bits, n, groups, cm, nq, fill)
     _, L, c = gg.shape
     stride = ms.check_key_space(bits, L * c)
-    for valid_n in (n, L * c, 0):
+    for valid_n in (n, L * c, n // 3, 0):
+        got = _counted("mxu_fullkey_scan",
+                       lambda: ms.fullkey_scan_keys(q, gg, valid_n, stride))
+        assert torch.equal(got, ms.fullkey_scan_keys_torch(q, gg, valid_n,
+                                                           stride)), valid_n
+        if fill is not None and valid_n <= n:
+            assert torch.equal(got, _full_keys_of_fill(
+                fill, bits, valid_n, nq, L, c, stride, dev))
+
+
+@pytest.mark.parametrize("bits", [32, 64, 96, 128, 160, 192, 224, 256])
+@pytest.mark.parametrize("n,groups,cm,nq,fill", GROUPED_EDGES)
+def test_tensor_core_scan_matches_plain(dev, bits, n, groups, cm, nq, fill):
+    """Kernel 9 (mma.sync f16 on the skeleton's staging) at W = 1..8 and the
+    edge rows of kernel 7: padding items, all-padding columns, partial
+    strips, L = 300 and 520, query counts that leave whole warps and blocks
+    idle, an exact hit (distance 0) and galleries of equal items; identical
+    to its plain version and to kernel 2."""
+    q, gg = _edge_inputs(dev, bits, n, groups, cm, nq, fill)
+    if fill is None:
+        q[0] = gg[:, 0, 0]  # an exact hit: item 0 at distance 0
+    _, L, c = gg.shape
+    stride = ms.check_key_space(bits, L * c)
+    for valid_n in (n, L * c, n // 3, 0):
         got = _counted("fullkey_scan_mma",
                        lambda: fullkey_scan_bf16(q, gg, valid_n, stride))
         assert torch.equal(got, ms.fullkey_scan_keys_torch(q, gg, valid_n,
-                                                           stride))
+                                                           stride)), valid_n
         assert torch.equal(got, ms.fullkey_scan_keys(q, gg, valid_n, stride))
+        if fill is not None and valid_n <= n:
+            assert torch.equal(got, _full_keys_of_fill(
+                fill, bits, valid_n, nq, L, c, stride, dev))
 
 
 def test_tensor_core_scan_ties_and_extremes(dev):
@@ -385,6 +417,10 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(dev):
         lk.mxu_subgroupmin_scan(many, gg, 100, 1000, 2)
     with pytest.raises(ValueError, match="queries"):
         ms.mxu_groupmin_scan(many, gg, 100)
+    with pytest.raises(ValueError, match="queries"):
+        ms.fullkey_scan_keys(many, gg, 100, 1000)
+    with pytest.raises(ValueError, match="queries"):
+        fullkey_scan_bf16(many, gg, 100, 1000)
     gpm = torch.ones((34, 1, 8, 16), dtype=torch.int8, device=dev)
     kb = ms.build_key_base_i32(8, 16, 34, 100, dev)
     with pytest.raises(ValueError, match="multiples of 4"):

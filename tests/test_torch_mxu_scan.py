@@ -4,6 +4,8 @@ rescan keys and mxu_topk's rankings are EXACTLY those of the Pallas kernels
 run in interpret mode, and of the numpy oracle. The port's kernels run as
 their plain PyTorch versions here (CPU tensors)."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -71,6 +73,92 @@ def test_fullkey_scan_matches_jax_exactly(bits, n, q, groups):
         np.testing.assert_array_equal(sub.numpy(), np.asarray(want_sub))
         if valid_n < c:  # columns past valid_n hold only padding
             assert (full.numpy()[:, valid_n:] == INT32_MAX).all()
+
+
+# Kernel 2's identity cases, (bits, n, queries, groups, fill): W = 1 and 8,
+# columns 10..15 all padding, L = 300, and galleries whose items all equal
+# the first query ("same", d = 0) or its complement (d = B), where the item
+# s = 0 of each column wins every tie.
+IDENTITY_CASES = [(32, 700, 5, 8, None), (256, 700, 5, 8, None),
+                  (64, 10, 3, 8, None), (32, 3000, 4, 300, None),
+                  (128, 3000, 4, 16, "same"), (128, 3000, 4, 16, "complement")]
+
+
+@functools.lru_cache(maxsize=None)
+def _identity_case(bits, n, q, groups, fill):
+    """(packed queries, grouped gallery, stride, {valid_n: the JAX
+    reference's full keys}) of one IDENTITY_CASES row, at valid_n = n, L*C,
+    n // 3 and 0; the Pallas kernel runs in interpret mode."""
+    rng = np.random.default_rng(bits * 5 + n + q)
+    queries = _pm1(rng, q, bits)
+    if fill is None:
+        codes = _pm1(rng, n, bits)
+    else:
+        queries = np.tile(queries[:1], (q, 1))
+        codes = np.tile(queries[:1] if fill == "same" else -queries[:1],
+                        (n, 1))
+    _, gg, _ = _layouts(codes, groups=groups)
+    pq = pack_codes_np(queries)
+    w, L, c = gg.shape
+    stride = L * c + 1
+    want = {}
+    for valid_n in (n, L * c, n // 3, 0):
+        full, _ = fullkey_jax(
+            unpack_pm1_jax(jnp.asarray(pq)), jnp.asarray(gg),
+            build_key_base(L, c, 32 * w, valid_n), stride=stride, c_total=c,
+            query_tile=8, col_block=16, sub_g=16, interpret=True)
+        want[valid_n] = np.asarray(full)
+    return pq, gg, stride, want
+
+
+@pytest.mark.parametrize("bits,n,q,groups,fill", IDENTITY_CASES)
+def test_full_column_keys_of_column_minima_equal_fullkey_scan(bits, n, q,
+                                                              groups, fill):
+    """Kernel 2 takes kernel 6's minimum: the column minima of the local keys
+    d*L + s (+2**22 on padding), decoded by ``_full_column_keys``, are the
+    full-key scan's keys (its plain twin's and the JAX reference's)."""
+    pq, gg, stride, want = _identity_case(bits, n, q, groups, fill)
+    _, L, c = gg.shape
+    for valid_n, ref in want.items():
+        plain = port.fullkey_scan_keys_torch(_t(pq), _t(gg), valid_n, stride)
+        np.testing.assert_array_equal(plain.numpy(), ref)
+        colmin = port.mxu_groupmin_scan_torch(_t(pq), _t(gg), valid_n)
+        got = port._full_column_keys(colmin, L, c, stride)
+        np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def _int8_epilogue_model(pq, gg, valid_n, stride):
+    """Kernel 2's arithmetic in numpy: per item the local key
+    (B<<15 | s | pad) - dot*32768 = pad<<30 | d<<16 | s from the +-1 dot
+    product, its minimum over each column's rows s, decoded into
+    d*stride + s*C + c, or INT32_MAX where the minimum carries the pad
+    flag."""
+    w, L, c = gg.shape
+    b = 32 * w
+    shifts = np.arange(32, dtype=np.uint32)
+    qbits = ((pq[:, :, None] >> shifts) & 1).reshape(len(pq), b)
+    gbits = ((gg[:, None] >> shifts[None, :, None, None]) & 1).reshape(b, L, c)
+    dot = np.einsum("qb,blc->qlc", qbits.astype(np.int64) * 2 - 1,
+                    gbits.astype(np.int64) * 2 - 1)
+    s = np.arange(L, dtype=np.int64)[:, None]
+    idx = s * c + np.arange(c, dtype=np.int64)[None, :]
+    pad = np.where(idx >= valid_n, 1 << 30, 0)
+    local = (((b << 15) | s | pad) - dot * 32768).min(axis=1)   # (Q, C)
+    d, s_min = (local >> 16) & 0x3FFF, local & 0xFFFF
+    full = d * stride + s_min * c + np.arange(c, dtype=np.int64)
+    return np.where(local & (1 << 30), INT32_MAX, full)
+
+
+@pytest.mark.parametrize("bits,n,q,groups,fill", IDENTITY_CASES)
+def test_int8_epilogue_model_equals_fullkey_scan(bits, n, q, groups, fill):
+    """The new kernel 2's epilogue, modelled in numpy from the int8 dot
+    products, gives the plain twin's and the JAX reference's keys."""
+    pq, gg, stride, want = _identity_case(bits, n, q, groups, fill)
+    for valid_n, ref in want.items():
+        plain = port.fullkey_scan_keys_torch(_t(pq), _t(gg), valid_n, stride)
+        np.testing.assert_array_equal(plain.numpy(), ref)
+        np.testing.assert_array_equal(
+            _int8_epilogue_model(pq, gg, valid_n, stride), ref)
 
 
 @pytest.mark.parametrize("bits,n,q,groups", SHAPES)
