@@ -103,6 +103,7 @@ MIN2_EDGES = (
     (3000, 16, 16, 40, "complement"),
 )
 SIGMAS = (1, 2, 16)  # and L: kernel 5's subgroup sizes at the edges
+PACK_EDGE_BITS = (4, 17, 36, 256)  # kernel 1 besides EDGE_CASES, n = 1,025
 STAGE2_STEPS = 500
 # The reference's MAP@1000 after 500 stage-II steps of config1 (seed 0),
 # measured on the CPU with
@@ -299,10 +300,11 @@ def kernels_5_to_8(torch, pq, gg, bg, n, lib_ms):
     +-1 bf16 matmul over the same codes (kernel 2's yardstick: every
     distance these scans reduce). Kernel 8 reads the gallery's 134 MB int8
     pm8 copy, and its yardstick is ``torch._int_mm`` on the same operands
-    where that call takes them; it is also held and timed at 1,024 queries
-    and on the bf16 copy. Also holds the rescan kernel at sigma = 16 on the
+    where that call takes them; it is also held and timed at 1,024 queries,
+    and on the 268 MB bf16 copy at both query counts beside a bf16 matmul of
+    the same operands. Also holds the rescan kernel at sigma = 16 on the
     large-k engine's k = 1,000 winner rows. Returns (stats, the sigma-16
-    rescan's device ms, kernel 8's times by query count and on bf16)."""
+    rescan's device ms, kernel 8's times by dtype and query count)."""
     from hashgan_tpu_torch.ops import groupmin as gm
     from hashgan_tpu_torch.ops import mxu_large_k as lk
     from hashgan_tpu_torch.ops import mxu_scan as ms
@@ -379,31 +381,44 @@ def kernels_5_to_8(torch, pq, gg, bg, n, lib_ms):
                  lambda: ms.mxu8_groupmin_scan_torch(qv, gpm, kb),
                  qv.numel() + gpm.numel() + kb.numel() * 4, full_bytes(q, c),
                  ops, INT8_PER_S, lib8)
-            pm8[nq] = dict(stats["pm_groupmin_scan"])
+            pm8[f"int8 {nq}"] = dict(stats["pm_groupmin_scan"])
             continue
         check(torch.equal(ms.mxu8_groupmin_scan(qv, gpm, kb),
                           ms.mxu8_groupmin_scan_torch(qv, gpm, kb)),
               f"pm8 scan != plain at {nq} x {L * c} x {32 * w}")
-        pm8[nq] = {"ms": device_ms(torch, lambda: ms.mxu8_groupmin_scan(
-            qv, gpm, kb), 10), "library_ms": lib8, **bound(
-            qv.numel() + gpm.numel() + kb.numel() * 4 + full_bytes(nq, c),
-            distance_ops(nq * L * c, 32 * w), INT8_PER_S)}
-    del gpm, flat, q4
-    # the bf16 copy of the same gallery (float32 keys, CUDA cores): held and
-    # timed once
+        pm8[f"int8 {nq}"] = {
+            "ms": device_ms(torch, lambda: ms.mxu8_groupmin_scan(qv, gpm, kb),
+                            10), "library_ms": lib8, **bound(
+                qv.numel() + gpm.numel() + kb.numel() * 4 + full_bytes(nq, c),
+                distance_ops(nq * L * c, 32 * w), INT8_PER_S)}
+    del gpm, flat
+    # the bf16 copy of the same gallery (float32 keys, bf16 tensor cores):
+    # held and timed at both query counts, beside a bf16 matmul of the
+    # operands (the plain twin timed at 256 queries)
     gpm = ms.grouped_to_pm8(gg, ms.pm8_column_block(c), torch.bfloat16)
-    qb = ms.unpack_to_pm1(pq)
+    flat = gpm.view(32 * w, -1)
     kbf = ms.build_key_base(L, c, 32 * w, n, pq.device)
-    check(torch.equal(ms.mxu8_groupmin_scan(qb, gpm, kbf),
-                      ms.mxu8_groupmin_scan_torch(qb, gpm, kbf)),
-          "pm8 scan != plain on the bf16 copy")
-    flat = gpm.view(32 * w, -1)  # the yardstick: a bf16 matmul of the operands
-    pm8["bf16"] = {"ms": device_ms(torch, lambda: ms.mxu8_groupmin_scan(
-        qb, gpm, kbf), 3),
-        "library_ms": device_ms(torch, lambda: torch.matmul(qb, flat), 5),
-        **bound(
-        qb.numel() * 2 + gpm.numel() * 2 + kbf.numel() * 4 + full_bytes(q, c),
-        distance_ops(q * L * c, 32 * w), BF16_PER_S)}
+    for qp in (pq, q4):
+        qb = ms.unpack_to_pm1(qp)
+        nq = qb.shape[0]
+        got = ms.mxu8_groupmin_scan(qb, gpm, kbf)
+        want = ms.mxu8_groupmin_scan_torch(qb, gpm, kbf)
+        check(torch.equal(got, want), "pm8 scan != plain on the bf16 copy "
+              f"at {nq} x {L * c} x {32 * w}")
+        pm8[f"bf16 {nq}"] = {
+            "max_abs_err": float((got.double() - want.double()).abs().max()),
+            "ms": device_ms(torch, lambda: ms.mxu8_groupmin_scan(qb, gpm, kbf),
+                            10),
+            "plain_ms": (device_ms(torch, lambda: ms.mxu8_groupmin_scan_torch(
+                qb, gpm, kbf), 1, 3) if nq == q else None),
+            "library_ms": device_ms(torch, lambda: torch.matmul(qb, flat), 5),
+            **bound(qb.numel() * 2 + gpm.numel() * 2 + kbf.numel() * 4
+                    + full_bytes(nq, c), distance_ops(nq * L * c, 32 * w),
+                    BF16_PER_S)}
+        del got, want
+    del gpm, flat, q4
+    for v in pm8.values():
+        v["share_of_bound"] = v["bound_ms"] / v["ms"]
     return stats, sigma_ms, pm8
 
 
@@ -416,7 +431,8 @@ def engines(torch, engine, gallery, batches, gen) -> dict:
     """Phase 4b: every other single-device route of ``PackedGallery.topk``,
     driven with the launch counts set to 0 just before and read just
     after: large k through ``ServingPipeline(k=5000)`` and ``mxu_topk_large``
-    in every select, the k = 256 / 257 boundary, repair, the pm8 copy,
+    in every select, the k = 256 / 257 boundary, repair, the int8 pm8 copy
+    and ``mxu_topk`` over a bf16 one,
     approx mode (column and subgroup engines), the sort engine past
     ``large_k_max``, and a 17,000,000-item slabbed gallery. Every answer is
     then held against a plain witness, a plain selection or the numpy
@@ -456,6 +472,8 @@ def engines(torch, engine, gallery, batches, gen) -> dict:
         pin_ms.append((time.perf_counter() - t0) * 1e3)
     pm8_gal = build_gallery_from_packed_device(canon, gallery.labels, bits,
                                                build_pm8=True)
+    # a bf16 copy, which no gallery builds: a direct mxu_topk caller's
+    pm16 = ms.grouped_to_pm8(gg, ms.pm8_column_block(c), torch.bfloat16)
     t0 = time.perf_counter()
     words = torch.randint(-2**31, 2**31 - 1, (N_SLABBED, w), dtype=torch.int32,
                           device=dev, generator=gen)
@@ -488,6 +506,7 @@ def engines(torch, engine, gallery, batches, gen) -> dict:
     fell_back = int(groupmin_topk(pq, gg, bg, n, k=100, repair=8)[2].sum())
     pm_exact = pm8_gal.topk(pq, k=100)
     pm_approx = pm8_gal.topk(pq, k=100, mode="approx")
+    pm_bf16 = ms.mxu_topk(pq, gg, bg, n, k=100, gallery_pm8=pm16)
     approx100 = gallery.topk(pq, k=100, mode="approx")
     approx1000 = gallery.topk(pq, k=LARGE_K[0], mode="approx")
     deep = gallery.topk(pq[:64], k=10_000)
@@ -522,7 +541,8 @@ def engines(torch, engine, gallery, batches, gen) -> dict:
           and equal_lists(torch, at257, (wd[:, :257], wi[:, :257])),
           "k = 256 / 257 across the engine boundary != plain witness")
     for name, res in (("repair=100", rep100), ("repair=8", rep8),
-                      ("pm8", pm_exact), ("mxu_topk", exact100)):
+                      ("pm8", pm_exact), ("pm8 bf16", pm_bf16),
+                      ("mxu_topk", exact100)):
         check(equal_lists(torch, res, (wd[:, :100], wi[:, :100])),
               f"{name} top-100 != plain witness")
     check(equal_lists(torch, pm_approx, approx100),
@@ -577,7 +597,9 @@ def engines(torch, engine, gallery, batches, gen) -> dict:
     timed = {"mxu_topk k=100": lambda: gallery.topk(pq, k=100),
              "pm8 exact k=100": lambda: pm8_gal.topk(pq, k=100),
              "pm8 approx k=100": lambda: pm8_gal.topk(pq, k=100,
-                                                      mode="approx")}
+                                                      mode="approx"),
+             "pm8 bf16 exact k=100": lambda: ms.mxu_topk(
+                 pq, gg, bg, n, k=100, gallery_pm8=pm16)}
     for k in LARGE_K:  # every select: the reference's default was a TPU pick
         for sel, cmp in selects:
             timed[f"large k={k} {sel}/{cmp}"] = (
@@ -591,7 +613,7 @@ def engines(torch, engine, gallery, batches, gen) -> dict:
         "repair=8 k=100": lambda: gallery.topk(pq, k=100, repair=8),
     })
     ms_per = {name: device_ms(torch, fn, 3, 3) for name, fn in timed.items()}
-    del pm8_gal
+    del pm8_gal, pm16
     # The pipeline's spread, in turns, by what the caller does with each
     # result: keeps it (as in the counted run: each batch takes a pinned
     # pair that no earlier result has freed), copies it out and drops the
@@ -622,8 +644,9 @@ def engines(torch, engine, gallery, batches, gen) -> dict:
           f"mxu_topk_large k={LARGE_K[0]} == plain witness under "
           f"{', '.join(large)}; k=256/257 == witness across the boundary; "
           f"repair=100 and repair=8 == mxu_topk ({fell_back} of "
-          f"{pq.shape[0]} queries fell back at repair=8); pm8 exact == "
-          f"mxu_topk, pm8 approx == approx; approx k=100 / {LARGE_K[0]} == "
+          f"{pq.shape[0]} queries fell back at repair=8); pm8 exact (int8 "
+          f"and bf16 copies) == mxu_topk, pm8 approx == approx; approx "
+          f"k=100 / {LARGE_K[0]} == "
           f"plain selection, recall {rec[0]:.4f} / {rec[1]:.4f}; k=10000 "
           f"(sort engine) == plain witness; {N_SLABBED} items slabbed "
           f"{gs.shape[0]} x {slab_items}: built in {big_build_s:.3f} s, "
@@ -1023,8 +1046,10 @@ def main() -> None:
         ("kernel 6", "groupmin_scan_mma_kernel"),
         ("kernel 7", "groupmin_min2_mma_kernel"),
         ("kernel 8 int8", "pm_int8_mma_kernel"),
+        ("kernel 8 bf16", "pm_bf16_mma_kernel"),
         ("kernel 9", "fullkey_scan_f16_kernel"))}
-    for k in ("kernel 2", "kernel 5", "kernel 6", "kernel 7", "kernel 9"):
+    for k in ("kernel 2", "kernel 5", "kernel 6", "kernel 7", "kernel 8 bf16",
+              "kernel 9"):
         check(len(usage[k]) == 8 and not any(
             st or ld for _, st, ld in usage[k].values()),
             f"{k} spills or is missing from the build log: {usage}")
@@ -1111,6 +1136,14 @@ def main() -> None:
         torch, pq, gg, bg, n, stats["mxu_fullkey_scan"]["library_ms"])
     stats.update(new_stats)
 
+    # kernel 1 at the edges of its vector path (bits % 4 == 0: a partial
+    # last word, W = 8) and on its scalar path (bits 17)
+    pgen = torch.Generator(device=dev).manual_seed(11)
+    for e_bits in PACK_EDGE_BITS:
+        e_codes = torch.randn(1025, e_bits, device=dev, generator=pgen)
+        e_codes[0, :3] = torch.tensor([float("nan"), 0.0, -0.0])
+        check(torch.equal(pack_codes(e_codes), pack_codes_torch(e_codes)),
+              f"pack != plain at 1025 x {e_bits}")
     erng = np.random.default_rng(7)
     for e_bits, e_n, e_q, e_k in EDGE_CASES:
         e_codes = erng.standard_normal((e_n, e_bits)).astype(np.float32)
@@ -1266,7 +1299,7 @@ def main() -> None:
             check((i[:, :kk] == oi).all() and (d[:, :kk] == od).all()
                   and (i[:, kk:] == tail).all() and (d[:, kk:] == sentinel).all(),
                   f"hamming_scan_topk != oracle at {e_w, e_q, e_n, valid_n}")
-    n_sub_shapes = n_full_cases = 0
+    n_sub_shapes = n_full_cases = n_pm8_cases = 0
     for e_w in range(1, 9):
         for e_n, groups, cm, e_q, fill in MIN2_EDGES:
             e_pq = words(e_q, e_w)
@@ -1303,6 +1336,18 @@ def main() -> None:
                         subgroupmin_scan_keys_torch(e_pq, e_gg, valid_n,
                                                     e_stride, sigma)),
                         f"subgroup scan != plain at edge case {edge, sigma}")
+                if pm8_column_block(e_C) % 4:  # no pm8 copy of this layout
+                    continue
+                for dt, key_base in ((torch.int8, build_key_base_i32),
+                                     (torch.bfloat16, build_key_base)):
+                    e_pm = grouped_to_pm8(e_gg, pm8_column_block(e_C), dt)
+                    e_qv = unpack_to_pm1(e_pq, dt)
+                    e_kb = key_base(e_L, e_C, 32 * e_w, valid_n, dev)
+                    check(torch.equal(
+                        mxu8_groupmin_scan(e_qv, e_pm, e_kb),
+                        mxu8_groupmin_scan_torch(e_qv, e_pm, e_kb)),
+                        f"pm8 scan != plain at edge case {edge, dt}")
+                n_pm8_cases += 1
             n_sub_shapes += len(e_sigmas)
     same = torch.full((9, 2), 0x55555555, dtype=torch.int32, device=dev)
     same_g = torch.full((2, 3001), 0x55555555, dtype=torch.int32, device=dev)
@@ -1329,17 +1374,22 @@ def main() -> None:
           f"edge shapes, and kernel 5 at {n_sub_shapes} (shape, sigma) "
           "pairs of them; each at 4 valid_n (kernels 2 and 9 at "
           f"{n_full_cases} (shape, valid_n) cases each besides the "
-          f"{len(EDGE_CASES)} scan shapes); the large-k and repair engines and hamming_scan_topk == "
+          f"{len(EDGE_CASES)} scan shapes; kernel 8 on the int8 and the "
+          f"bf16 copy at {n_pm8_cases} of them; kernel 1 at "
+          f"{len(PACK_EDGE_BITS)} more widths); the large-k and repair "
+          "engines and hamming_scan_topk == "
           "numpy oracle at the edges, hamming_scan_topk == mxu_topk for 64 "
           "config5 queries; rescan at sigma 16 (256 x 1,000 winner "
-          f"subgroups) {sigma_ms:.4f} ms; kernel 8 (ms / torch._int_mm ms / "
-          "bound ms): "
-          + "; ".join(f"int8 {k} queries {v['ms']:.4f} / {v['library_ms']} / "
-                      f"{v['bound_ms']:.4f}" for k, v in pm8_ms.items()
-                      if k != "bf16")
-          + f"; bf16 256 queries {pm8_ms['bf16']['ms']:.4f} / "
-          f"{pm8_ms['bf16']['library_ms']:.4f} (bf16 matmul) / "
-          f"{pm8_ms['bf16']['bound_ms']:.4f}; kernel 4 (ms / plain / "
+          f"subgroups) {sigma_ms:.4f} ms; kernel 8 (ms / library ms: "
+          "torch._int_mm for int8, a bf16 matmul for bf16 / bound ms / share "
+          "of bound): "
+          + "; ".join(f"{k} queries {v['ms']:.4f} / {v['library_ms']} / "
+                      f"{v['bound_ms']:.4f} / {v['share_of_bound']:.3f}"
+                      for k, v in pm8_ms.items())
+          + f"; kernel 1 at 1M x {bits} {stats['pack']['ms']:.4f} ms, bound "
+          f"{stats['pack']['bound_ms']:.4f}, share "
+          f"{stats['pack']['bound_ms'] / stats['pack']['ms']:.3f}"
+          "; kernel 4 (ms / plain / "
           "torch._int_mm / bf16 matmul / fill of its output / bound): "
           + "; ".join(f"{s} {t['ms']:.4f} / {t['plain_ms']:.4f} / "
                       f"{t['library_ms']} / {t['bf16_ms']:.4f} / "
@@ -1537,9 +1587,12 @@ def main() -> None:
         "fullkey_scan_mma"]
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
+    stats["pm_groupmin_scan"].update(
+        {f"bf16_{nq}": pm8_ms[f"bf16 {nq}"] for nq in (BATCH, 4 * BATCH)})
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], **stats[name]}
+         "launches": launches[name], **stats[name],
+         "share_of_bound": stats[name]["bound_ms"] / stats[name]["ms"]}
         for name, (src, rep) in KERNEL_INFO.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -65,6 +65,9 @@ MODES = ("exact", "approx")
 PAD_PENALTY = 1 << 22
 # The grid of kernels 2, 5 and 6 (csrc/grouped_scan.cuh): 256 queries a row.
 GROUPED_MAX_QUERIES = 65535 * 256
+# Kernel 8's grid (csrc/pm_groupmin_scan.cu): query blocks of up to 256
+# along x, whose queries must index as int.
+PM8_MAX_QUERIES = 2**31 - 256
 
 
 def check_mode(mode: str) -> None:
@@ -322,8 +325,8 @@ def mxu8_groupmin_scan(q_pm: torch.Tensor, gallery_pm: torch.Tensor,
     """(Q, B) +-1 queries x (B, C//cb, L, cb) +-1 gallery (grouped_to_pm8)
     + (L, C) key base -> (Q, C) column-min keys: int32 for int8 operands
     (key base from build_key_base_i32), float32 for bf16 ones
-    (build_key_base). CUDA tensors launch ``csrc/pm_groupmin_scan.cu`` (int8
-    on the tensor cores, bf16 on the CUDA cores); CPU tensors run
+    (build_key_base). CUDA tensors launch ``csrc/pm_groupmin_scan.cu`` (both
+    dtypes on the tensor cores, B = 32..256 in steps of 32); CPU tensors run
     ``mxu8_groupmin_scan_torch``."""
     b, nb, L, cb = gallery_pm.shape
     int_path = gallery_pm.dtype == torch.int8
@@ -339,8 +342,8 @@ def mxu8_groupmin_scan(q_pm: torch.Tensor, gallery_pm: torch.Tensor,
         return mxu8_groupmin_scan_torch(q_pm, gallery_pm, key_base)
     if b % 4 or cb % 4:
         raise ValueError(f"the kernel takes B and cb multiples of 4, got {b}, {cb}")
-    if int_path and (b % 32 or not 32 <= b <= 32 * _build.MAX_WORDS):
-        raise ValueError(f"the int8 kernel takes B = 32..{32 * _build.MAX_WORDS}"
+    if b % 32 or not 32 <= b <= 32 * _build.MAX_WORDS:
+        raise ValueError(f"the kernel takes B = 32..{32 * _build.MAX_WORDS}"
                          f" in steps of 32, got {b}")
     _build.require_cuda_tensor(q_pm, "q_pm", gallery_pm.dtype, 2)
     _build.require_cuda_tensor(gallery_pm, "gallery_pm", gallery_pm.dtype, 4)
@@ -349,6 +352,7 @@ def mxu8_groupmin_scan(q_pm: torch.Tensor, gallery_pm: torch.Tensor,
         raise ValueError("gallery_pm and key_base must be 16-byte aligned, "
                          "q_pm 4-byte aligned")
     q = q_pm.shape[0]
+    _build.check_queries(q, PM8_MAX_QUERIES)
     out = torch.empty((q, nb * cb), dtype=base_t, device=gallery_pm.device)
     if out.numel():
         _build.KERNELS.launch(

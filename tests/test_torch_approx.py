@@ -98,6 +98,29 @@ def test_pm8_scan_matches_jax(bits, n, q, groups, dtype):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("bits", [32, 256])
+@pytest.mark.parametrize("L", [7, 8, 128, 300, 4096])
+def test_pm8_float_keys_round_as_the_exact_key(L, bits):
+    """Kernel 8's bf16 path forms each key as two rounded float32 operations,
+    base - (dot * L/2) (``__fsub_rn`` of ``__fmul_rn``), as its plain twin
+    does. At every key the scan can form (every s, every dot of B's parity
+    in -B..B, valid and padding items) that equals the exact key d*L + s
+    (+2**22) rounded once, and numpy's float32 steps agree."""
+    c = 3
+    kb = port.build_key_base(L, c, bits, valid_n=L)  # rows past L/3 padded
+    half_l = L / 2.0
+    dots = np.arange(-bits, bits + 1, 2, dtype=np.float32)[:, None, None]
+    twice = kb[None] - torch.from_numpy(dots) * half_l
+    exact = kb.double()[None] - torch.from_numpy(dots).double() * half_l
+    assert torch.equal(twice, exact.float())
+    np.testing.assert_array_equal(
+        twice.numpy(), kb.numpy()[None] - dots * np.float32(half_l))
+    idx = np.arange(L)[:, None] * c + np.arange(c)
+    d = (bits - dots) / 2
+    want = d * L + np.arange(L)[:, None] + np.where(idx < L, 0, 2**22)
+    np.testing.assert_array_equal(exact.numpy(), want)
+
+
 def test_pm8_layout_and_key_bases_match_jax():
     rng = np.random.default_rng(7)
     packed = rng.integers(0, 2**32, (300, 2), dtype=np.uint32)

@@ -94,8 +94,11 @@ def test_bench_pm8_on_cpu():
     out = run_pm8_bench("cpu", n=3000, queries=(17,))
     assert out["card"] == "cpu" and out["bits"] == 128
     times = out["ms"][17]
-    assert set(times) == {"kernel8", "int_mm", "pm8_exact", "pm8_approx",
+    assert set(times) == {"kernel8", "int_mm", "kernel8_bf16", "bf16_matmul",
+                          "pm8_exact", "pm8_approx", "pm8_bf16_exact",
                           "exact", "approx"}
+    times.update(pack=out["ms"]["pack"],
+                 gallery_build=out["ms"]["gallery_build"])
     assert all(0 < t["min_ms"] <= t["median_ms"] for t in times.values())
 
 

@@ -48,11 +48,22 @@ def _gallery(dev, n, bits, seed, groups=8, cm=16):
     return gal, q
 
 
-@pytest.mark.parametrize("n,bits", [(1, 16), (1000, 32), (4097, 48),
-                                    (333, 128), (65, 250)])
-def test_pack_kernel_matches_plain(dev, n, bits):
-    codes = torch.randn(n, bits, device=dev)
+@pytest.mark.parametrize("n,bits,offset", [
+    (1, 16, 0), (1000, 32, 0), (4097, 48, 0), (333, 128, 0), (65, 250, 0),
+    (1025, 4, 0), (1025, 36, 0), (1025, 256, 0),  # vector path, partial words
+    (1025, 17, 0),    # scalar path (bits % 4 != 0)
+    (4099, 128, 0),   # the grid's last step covers part of a warp
+    (777, 33, 33),    # codes[1:] of an (n + 1, bits) buffer: scalar path
+    (777, 128, 1),    # a 4-byte storage offset, bits % 4 == 0: scalar path
+])
+def test_pack_kernel_matches_plain(dev, n, bits, offset):
+    """Kernel 1 on both of its paths: the vector path takes bits % 4 == 0
+    with 16-byte aligned codes (``csrc/pack.cu``), the scalar path the
+    rest; ``offset`` floats into a flat buffer set the alignment."""
+    codes = torch.randn(n * bits + offset, device=dev)[offset:].view(n, bits)
     codes[0, :3] = torch.tensor([float("nan"), 0.0, -0.0])
+    vector = bits % 4 == 0 and codes.data_ptr() % 16 == 0
+    assert vector == (bits % 4 == 0 and offset % 4 == 0)
     before = _build.launch_counts()["pack"]
     got = pack_codes(codes)
     torch.cuda.synchronize()
@@ -309,6 +320,9 @@ def test_tensor_core_scan_ties_and_extremes(dev):
     (3000, 16, 255, 3000, None, None),  # and a query past it
     (3000, 16, 257, 3000, None, None),
     (3000, 16, 1024, 3000, None, None),
+    (3000, 16, 33, 3000, None, None),   # bf16: a part of one warp's 64
+    (3000, 16, 129, 3000, None, None),  # queries; past its 128-query block
+    (700, 7, 9, 700, None, None),      # odd L: half_l = 3.5 in bf16
     (700, 8, 33, 50, None, None),      # columns 50..95 hold only padding
     (10, 8, 5, 10, None, None),        # C = 16: one partial strip
     (700, 8, 9, 700, None, 8),         # 8- and 4-byte staging copies
@@ -318,11 +332,12 @@ def test_tensor_core_scan_ties_and_extremes(dev):
 ])
 def test_pm8_kernel_matches_plain(dev, bits, n, groups, nq, valid_n, fill, cb,
                                   dtype):
-    """Kernel 8 on int8 (int32 keys, tensor cores) and bf16 (float32 keys)
-    copies: query counts around the int8 kernel's 16-query m-tile, 32-query
-    warp and 256-query block, column counts that leave a partial 64-column
-    strip, column blocks of 64, 32, 16, 8 and 4, columns that hold only
-    padding, and galleries of equal items (the smallest s wins)."""
+    """Kernel 8 on int8 (int32 keys) and bf16 (float32 keys) copies, both on
+    the tensor cores: query counts around the 16-query m-tile, the 32- and
+    64-query warps and the 256- and 128-query blocks, column counts that
+    leave a partial 64-column strip, column blocks of 64, 32, 16, 8 and 4,
+    columns that hold only padding, an odd L, and galleries of equal items
+    (the smallest s wins)."""
     gal, _ = _gallery(dev, n, bits, seed=bits + n, groups=groups)
     if fill is not None:
         words = torch.full((n, gal.words), fill, dtype=torch.int32, device=dev)
@@ -431,6 +446,10 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="steps of 32"):
         ms.mxu8_groupmin_scan(torch.ones((2, 36), dtype=torch.int8,
                                          device=dev), gpm, kb)
+    with pytest.raises(ValueError, match="steps of 32"):
+        ms.mxu8_groupmin_scan(
+            torch.ones((2, 36), dtype=torch.bfloat16, device=dev),
+            gpm.to(torch.bfloat16), ms.build_key_base(8, 16, 36, 100, dev))
 
 
 @pytest.mark.parametrize("w,q,n,off", [(1, 256, 5400, 0), (1, 33, 1025, 1),

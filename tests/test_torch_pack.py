@@ -40,6 +40,42 @@ def test_pack_matches_reference_bit_for_bit(bits):
                                      interpret=True)))
 
 
+def _vector_path_words(codes):
+    """A numpy model of the vector path of ``csrc/pack.cu``: for each (row,
+    word), lane j of a group of 8 reads the float4 of columns 32w + 4j ..
+    32w + 4j + 3 (zeros past the row's bits), forms the nibble of its > 0
+    votes at bit 4j, and three xor-shuffle steps OR the 8 lanes' values,
+    after which every lane holds the word."""
+    n, bits = codes.shape
+    assert bits % 4 == 0
+    words = (bits + 31) // 32
+    padded = np.zeros((n, words * 32), np.float32)
+    padded[:, :bits] = codes
+    votes = (padded.reshape(n, words, 8, 4) > 0).astype(np.uint32)
+    nibbles = np.bitwise_or.reduce(votes << np.arange(4, dtype=np.uint32), -1)
+    lanes = nibbles << (4 * np.arange(8, dtype=np.uint32))
+    for step in (1, 2, 4):
+        lanes = lanes | lanes[..., np.arange(8) ^ step]
+    assert (lanes == lanes[..., :1]).all()
+    return lanes[..., 0]
+
+
+@pytest.mark.parametrize("bits", [4, 36, 48, 128, 256])
+def test_vector_path_word_assembly_matches_reference(bits):
+    """The kernel's word assembly (8 lanes of 4-bit nibbles OR'd into a
+    word) gives the reference's words, with a partial last word, NaN and
+    +-0 in the codes."""
+    codes = _codes(37, bits, seed=bits + 100)
+    codes[3, ::5] = np.nan
+    got = _vector_path_words(codes)
+    np.testing.assert_array_equal(got, pack_codes_np(codes))
+    np.testing.assert_array_equal(
+        got, np.asarray(_pack_pallas(jnp.asarray(codes), block=8,
+                                     interpret=True)))
+    np.testing.assert_array_equal(
+        got, pack_codes(torch.from_numpy(codes)).numpy().view(np.uint32))
+
+
 def test_pack_nan_packs_to_zero_like_jax():
     codes = np.full((2, 32), np.nan, np.float32)
     codes[1, 5] = 1.0
