@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU: the serving path,
 every single-device search engine, config1's stage-II training and
-evaluation, and the measurement path (the scan and serving benchmarks, the
-scan variants, the flagship ``entry()``, the AlexNet and ResNet encoders).
+evaluation, the measurement path (the scan and serving benchmarks, the
+scan variants, the flagship ``entry()``, the AlexNet and ResNet encoders),
+and config2's GAN stage I with co-training.
 
     python3 chip_smoke.py        (from the repository root; no arguments)
 
@@ -19,8 +20,13 @@ path: ``bench_scan.run_bench`` at its headline shape (1,024 queries x
 1,048,576 items x 128 bits, k = 100), ``bench_serve``, the scan-variants
 script (kernel 2 against kernel 9, the tensor-core scan), ``entry()``
 (AlexNet 48 bits), and the config2 (AlexNet 48 bits) and config4 (ResNet 64
-bits) encoders answering a 256-image batch over a 1M gallery. Every answer
-is checked against plain witnesses and numpy oracles. Imports nothing of
+bits) encoders answering a 256-image batch over a 1M gallery, then
+config2's PC-WGAN at full width (dim 128, z 128, batch 64, n_critic 5,
+bf16): one cycle on the card against the CPU, timed cycles, 200 cycles
+through ``Experiment.train_gan`` with a bit-exact resume check, and
+``train --stage 2`` co-training the AlexNet encoder on real and generated
+images, evaluated. Every answer is checked against plain witnesses and
+numpy oracles. Imports nothing of
 JAX and nothing of the JAX package ``hashgan_tpu``: the presets and the
 synthetic images come from the port.
 
@@ -33,8 +39,12 @@ the script exits non-zero without that line — also when no GPU is visible.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import gc
+import io
 import json
+import math
 import os
 import shutil
 import statistics
@@ -105,6 +115,11 @@ MIN2_EDGES = (
 SIGMAS = (1, 2, 16)  # and L: kernel 5's subgroup sizes at the edges
 PACK_EDGE_BITS = (4, 17, 36, 256)  # kernel 1 besides EDGE_CASES, n = 1,025
 STAGE2_STEPS = 500
+# phase 9: cycles timed, cycles profiled, stage-I cycles through the
+# Experiment, cycles of each half of the resume check, stage-II steps
+# through the CLI, stage-II steps timed after them
+GAN_CYCLES, GAN_PROFILED, GAN_STAGE1, GAN_RESUME = 50, 3, 200, 5
+GAN_STAGE2, GAN_TIMED_STEPS = 100, 50
 # The reference's MAP@1000 after 500 stage-II steps of config1 (seed 0),
 # measured on the CPU with
 #   HASHGAN_SYNTH_DEVICE=off HASHGAN_SYNTH_CACHE=off JAX_PLATFORMS=cpu \
@@ -755,6 +770,333 @@ def stage2(torch, cfg) -> dict:
           f"(|diff| {abs(m[map_key] - o_map):.2g}, {abs(m[p_key] - o_p):.2g});"
           f" launches {counts}; resume 20 + 20 == 40 steps bit for bit",
           flush=True)
+    return counts
+
+
+def _gan_tensors(st) -> list:
+    """Every tensor of a GAN state: G (with its running averages), D, and
+    both optimisers' moments and step counts."""
+    out = list(st.generator.state_dict().values())
+    out += list(st.discriminator.state_dict().values())
+    for opt in (st.g_opt, st.d_opt):
+        for s in opt.state_dict()["state"].values():
+            out += [s[k] for k in ("exp_avg", "exp_avg_sq", "step")]
+    return out
+
+
+def gan_card_vs_cpu(torch, cfg, dev) -> str:
+    """Phase 9, part 1: config2 at float32 (TF32 off) on the card and on
+    the CPU, from one set of weights and the same batches and draws.
+
+    - At those weights, the first critic step's loss and the generator
+      step's: every metric within rtol 1e-4 / atol 1e-5 (the CPU tests'
+      tolerance against the reference), and each loss's gradient (D's, G's)
+      within 1e-3 relative (L2). At this width a bias's gradient sums
+      131,072 terms and the double backward runs other algorithms than the
+      CPU's (measured on an H100: 6e-6 to 1.8e-4); a fault moves it by
+      order 1.
+    - A whole cycle: the metrics finite, their and the parameters' largest
+      differences printed. Adam with beta1 0 moves every entry by about
+      +-lr a step whatever its gradient's size, so an entry whose gradient
+      is at rounding level moves +lr on one side and -lr on the other: a
+      rounding difference in the first critic step becomes a 2 lr
+      difference in some parameters, and the later steps see two critics
+      that differ by more than rounding. The parameters are held to what
+      Adam allows: G (one step) within 2 lr + 1e-6, D (n_critic steps, each
+      at most lr * sqrt(1 / (1 - beta2)) in size) within
+      2 n_critic lr sqrt(1 / (1 - beta2)) + 1e-6."""
+    from hashgan_tpu_torch.data.pipeline import BatchIterator
+    from hashgan_tpu_torch.data.preprocess import to_gan_range
+    from hashgan_tpu_torch.data.synthetic import make_splits
+    from hashgan_tpu_torch.losses.wgan_gp import (
+        critic_loss_fn,
+        generator_loss_fn,
+    )
+    from hashgan_tpu_torch.train.gan_step import cycle_draws, make_gan_cycle
+    from hashgan_tpu_torch.train.state import create_gan_state
+
+    t0 = time.perf_counter()
+    c = dataclasses.replace(cfg, gan=dataclasses.replace(
+        cfg.gan, compute_dtype="float32"))
+    gan, b = c.gan, c.train.batch_size
+    nc, lr = gan.n_critic, gan.lr
+    cpu, card = create_gan_state(c, "cpu"), create_gan_state(c, dev)
+    for a, x in ((cpu.generator, card.generator),
+                 (cpu.discriminator, card.discriminator)):
+        x.load_state_dict(a.state_dict())
+    images, labels = BatchIterator(make_splits(c.data)["train"],
+                                   b * (nc + 1), seed=5).batch(0)
+    images = torch.from_numpy(images).view(nc + 1, b, *images.shape[1:])
+    labels = torch.from_numpy(labels).view(nc + 1, b, -1)
+    z_critic, eps, z_g = draws = cycle_draws(11, 0, nc, b, gan.z_dim)
+
+    sides = []
+    for st, d in ((cpu, torch.device("cpu")), (card, dev)):
+        g, disc = st.generator, st.discriminator
+        with torch.no_grad():
+            fake = g(z_critic[0].to(d), labels[0].to(d), train=True,
+                     update=False)
+        d_loss, d_m = critic_loss_fn(disc, to_gan_range(images[0].to(d)),
+                                     fake, labels[0].to(d), eps[0].to(d))
+        d_grad = torch.autograd.grad(d_loss, list(disc.parameters()))
+        fake = g(z_g.to(d), labels[nc].to(d), train=True, update=False)
+        g_loss, g_m = generator_loss_fn(disc, fake, labels[nc].to(d))
+        g_grad = torch.autograd.grad(g_loss, list(g.parameters()))
+        sides.append(({k: v.item() for k, v in {**d_m, **g_m}.items()},
+                      [torch.cat([t.cpu().ravel() for t in gr])
+                       for gr in (d_grad, g_grad)]))
+    (want, want_g), (got, got_g) = sides
+    m_first = 0.0
+    for k, v in want.items():
+        check(abs(got[k] - v) <= 1e-5 + 1e-4 * abs(v),
+              f"card loss metric {k}: {got[k]} vs CPU {v}")
+        m_first = max(m_first, abs(got[k] - v))
+    rel = [((x - w).norm() / w.norm()).item() for x, w in zip(got_g, want_g)]
+    check(max(rel) <= 1e-3, f"card gradients (D, G): relative L2 {rel}")
+
+    cycle = make_gan_cycle(c)
+    want = cycle(cpu, images, labels, draws)
+    got = cycle(card, images.to(dev), labels.to(dev), draws)
+    check(all(math.isfinite(v.item()) for v in got.values()),
+          f"card cycle metrics {got}")
+    m_cycle = max(abs(got[k].item() - v.item()) for k, v in want.items())
+    worst = {}
+    for name, a, x, bound in (
+            ("G", cpu.generator, card.generator, 2 * lr + 1e-6),
+            ("D", cpu.discriminator, card.discriminator,
+             2 * nc * lr * math.sqrt(1 / (1 - gan.beta2)) + 1e-6)):
+        worst[name] = max((px.detach().cpu() - pa.detach()).abs().max().item()
+                          for pa, px in zip(a.parameters(), x.parameters()))
+        check(worst[name] <= bound,
+              f"card cycle {name} parameters: max |diff| {worst[name]} > "
+              f"{bound}")
+    return (f"card vs CPU at float32 ({time.perf_counter() - t0:.1f} s): "
+            f"losses at the same weights max |diff| {m_first:.3g}, "
+            f"gradients relative L2 D {rel[0]:.3g}, G {rel[1]:.3g}; after "
+            f"one cycle metrics max |diff| {m_cycle:.3g}, parameters G "
+            f"{worst['G']:.3g}, D {worst['D']:.3g} (2 lr = {2 * lr:.3g})")
+
+
+def gan_stage(torch, dev) -> dict:
+    """Phase 9: config2's stage I and co-training on its synthetic splits,
+    at full width (PC-WGAN dim 128, z 128, 32x32x3, 10 classes, batch 64,
+    n_critic 5, bf16), only the iteration counts cut: the card against the
+    CPU on one cycle; GAN_CYCLES timed cycles; GAN_STAGE1 cycles through
+    ``Experiment.train_gan`` (sample grids, sample quality, checkpoints) and
+    resume n + n == 2n bit for bit; then ``train --stage 2`` in that workdir
+    (restores the stage-I checkpoint, trains the AlexNet 48-bit encoder on
+    64 real + 32 generated images a step), timed, and ``evaluate()`` (K1,
+    K4) against the numpy oracle. Returns the kernel launches of the stage-II
+    CLI run."""
+    from hashgan_tpu_torch import cli
+    from hashgan_tpu_torch.configs import get_config
+    from hashgan_tpu_torch.data.pipeline import make_batch_feed
+    from hashgan_tpu_torch.data.synthetic import make_splits
+    from hashgan_tpu_torch.eval import oracle
+    from hashgan_tpu_torch.ops import _build
+    from hashgan_tpu_torch.ops.pack import pack_codes
+    from hashgan_tpu_torch.train.gan_step import make_gan_cycle
+    from hashgan_tpu_torch.train.loop import Experiment
+    from hashgan_tpu_torch.train.state import create_gan_state
+
+    # the earlier phases' galleries and cached blocks go first: the cycle
+    # allocates and frees many buffers of many sizes
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 2**30
+    base = get_config("config2")
+    lines = [gan_card_vs_cpu(torch, base, dev)]
+    gan, b = base.gan, base.train.batch_size
+
+    # the cycle at bf16: device ms (CUDA events over back-to-back cycles),
+    # host ms (the host clock to the last cycle's end), busy device ms (the
+    # profiler's kernel time over a call of GAN_PROFILED cycles)
+    st = create_gan_state(base, dev)
+    cycle = make_gan_cycle(base)
+    feed = make_batch_feed(make_splits(base.data)["train"], base,
+                           start_step=0, seed=base.train.seed, device=dev,
+                           n_batches=gan.n_critic + 1)
+    for _ in range(5):
+        cycle(st, *next(feed))
+    batches = [next(feed) for _ in range(GAN_CYCLES)]
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    for images, labels in batches:
+        metrics = cycle(st, images, labels)
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / GAN_CYCLES
+    dev_ms = start.elapsed_time(end) / GAN_CYCLES
+    del batches
+    prof = [next(feed) for _ in range(GAN_PROFILED)]
+    busy, top = kernel_breakdown(
+        torch, lambda: [cycle(st, i, l) for i, l in prof])
+    busy /= GAN_PROFILED
+    check(all(math.isfinite(v.item()) for v in metrics.values()),
+          f"non-finite cycle metrics {metrics}")
+    lines.append(
+        f"cycle (bf16): {dev_ms:.3f} device ms (CUDA events, {GAN_CYCLES} "
+        f"back to back), {host_ms:.3f} host ms, {busy:.3f} ms of kernels "
+        f"(profiler), device idle {max(0.0, 1 - busy / dev_ms):.3f}; top 5: "
+        + "; ".join(f"{k} {v / GAN_PROFILED:.4f}" for k, v in top))
+    del st, feed, prof
+
+    root = tempfile.mkdtemp(prefix="hashgan_smoke_gan_")
+    try:
+        wd = os.path.join(root, "config2")
+        cfg = dataclasses.replace(base, train=dataclasses.replace(
+            base.train, workdir=wd, log_every=GAN_STAGE1 // 4,
+            sample_every=GAN_STAGE1 // 2, checkpoint_every=GAN_STAGE1 // 2))
+        t0 = time.perf_counter()
+        exp = Experiment(cfg)
+        setup_s = time.perf_counter() - t0
+        g0 = [p.detach().clone() for p in exp.gan_state.generator.parameters()]
+        t0 = time.perf_counter()
+        exp.train_gan(GAN_STAGE1)
+        torch.cuda.synchronize()
+        stage1_s = time.perf_counter() - t0
+        for step in (GAN_STAGE1 // 2, GAN_STAGE1):
+            check(os.path.exists(os.path.join(wd, f"samples_{step}.png")),
+                  f"no samples_{step}.png")
+        check(exp.ckpt.all_steps() == [GAN_STAGE1 // 2, GAN_STAGE1],
+              f"stage-I checkpoints {exp.ckpt.all_steps()}")
+        quality = exp.sample_quality()
+        check(len(quality) == 6 and all(map(math.isfinite, quality.values())),
+              f"sample quality {quality}")
+        with open(os.path.join(wd, "metrics.jsonl")) as f:
+            logs = [r for r in map(json.loads, f) if "grad_penalty" in r]
+        check(logs and logs[-1]["grad_penalty"] < 10.0,
+              f"grad penalty {logs[-1:]}")
+        moved = max((p.detach() - q).abs().max().item() for p, q in
+                    zip(exp.gan_state.generator.parameters(), g0))
+        check(moved > 0, "G's parameters did not move")
+        lines.append(
+            f"Experiment set-up {setup_s:.2f} s, train_gan {GAN_STAGE1} "
+            f"cycles in {stage1_s:.2f} s with 4 logs, 2 sample grids, 2 "
+            f"sample-quality reports and 2 checkpoints; at cycle {logs[-1]['step']}: wasserstein "
+            f"{logs[-1]['wasserstein']:.4f}, grad_penalty "
+            f"{logs[-1]['grad_penalty']:.4f}, d_aux_ce "
+            f"{logs[-1]['d_aux_ce']:.4f}, g_aux_ce {logs[-1]['g_aux_ce']:.4f}; "
+            f"conditional_accuracy_tmpl "
+            f"{quality['conditional_accuracy_tmpl']:.4f}, "
+            f"inception_score_tmpl {quality['inception_score_tmpl']:.4f}, "
+            f"conditional_accuracy_aux "
+            f"{quality['conditional_accuracy_aux']:.4f}; G moved by up to "
+            f"{moved:.3g}")
+
+        small = dataclasses.replace(cfg, data=dataclasses.replace(
+            cfg.data, n_query=64, n_database=256))
+        n = GAN_RESUME
+
+        def fresh(name):
+            return Experiment(dataclasses.replace(
+                small, train=dataclasses.replace(
+                    small.train, workdir=os.path.join(root, name))))
+
+        t0 = time.perf_counter()
+        straight = fresh("straight")
+        straight.train_gan(2 * n)
+        first = fresh("resumed")
+        first.train_gan(n)
+        first.save_checkpoint()
+        resumed = fresh("resumed")
+        check(resumed.restore_checkpoint() and resumed.gan_state.step == n,
+              "no stage-I checkpoint restored")
+        resumed.train_gan(n)
+        check(resumed.gan_state.step == 2 * n and all(
+            torch.equal(a, c) for a, c in zip(_gan_tensors(straight.gan_state),
+                                              _gan_tensors(resumed.gan_state))),
+              f"{n} + save + restore + {n} cycles != {2 * n} cycles")
+        lines.append(f"resume {n} + {n} == {2 * n} cycles bit for bit "
+                     f"({time.perf_counter() - t0:.2f} s)")
+        del straight, first, resumed
+
+        # stage II through the CLI, as a user continues from stage I; the
+        # hooks count the real and generated images of each step and time
+        # the set-up, the steps and the closing evaluate()
+        made, seen, marks = [], [], {}
+        experiment = cli._experiment
+
+        def watched(args):
+            e = experiment(args)
+            marks["made"] = time.perf_counter()
+            sample, step = e._sample, e._enc_step
+
+            def counted_sample(z, labels):
+                seen.append(("fake", z.shape[0]))
+                return sample(z, labels)
+
+            def counted_step(state, images, labels, **kw):
+                seen.append(("real", images.shape[0]))
+                out = step(state, images, labels, **kw)
+                marks["stepped"] = time.perf_counter()
+                return out
+
+            e._sample, e._enc_step = counted_sample, counted_step
+            made.append(e)
+            return e
+
+        cli._experiment = watched
+        err, out = io.StringIO(), io.StringIO()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stderr(err), \
+                    contextlib.redirect_stdout(out):
+                cli.main(["train", "--config", "config2", "--stage", "2",
+                          "--workdir", wd, "--iters", str(GAN_STAGE2)])
+        finally:
+            cli._experiment = experiment
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        made_s, steps_s = marks["made"] - t0, marks["stepped"] - marks["made"]
+        eval_s = t1 - marks["stepped"]
+        counts = _build.launch_counts()
+        check(all(counts[k] > 0 for k in STAGE2_KERNELS),
+              f"stage II's evaluate() did not launch {STAGE2_KERNELS}")
+        check("restored stage-1 checkpoint from workdir" in err.getvalue(),
+              f"stage 2 did not restore stage I: {err.getvalue()[-500:]}")
+        exp = made[0]
+        m = json.loads(out.getvalue().strip().splitlines()[-1])
+        check(exp.gan_state.step == GAN_STAGE1
+              and exp.encoder_state.step == GAN_STAGE2,
+              f"steps {exp.gan_state.step}, {exp.encoder_state.step}")
+        check(seen.count(("real", 64)) == GAN_STAGE2
+              and seen.count(("fake", 32)) == GAN_STAGE2,
+              f"stage-II batches {collections.Counter(seen)}")
+        R, radius = exp.cfg.eval.R, exp.cfg.eval.precision_radius
+        pq = pack_codes(exp.encode_split("query")).cpu().numpy()
+        pg = pack_codes(exp.encode_split("database")).cpu().numpy()
+        d = oracle_distances(pq.view(np.uint32), pg.view(np.uint32))
+        ql, dl = exp.splits["query"].labels, exp.splits["database"].labels
+        o_map = oracle.mean_average_precision_np(d, ql, dl, R=R)
+        o_p = oracle.precision_at_radius_np(d, ql, dl, radius=radius)
+        map_key, p_key = f"map_at_{R}", f"precision_at_h{radius}"
+        check(abs(m[map_key] - o_map) <= 1e-6 and abs(m[p_key] - o_p) <= 1e-6,
+              f"evaluate() {m} != numpy oracle ({o_map}, {o_p})")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        exp.train_encoder(GAN_TIMED_STEPS, eval_during=False)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t2) * 1e3 / GAN_TIMED_STEPS
+        lines.append(
+            f"train --stage 2 (restored GAN step {GAN_STAGE1}; AlexNet "
+            f"48-bit bf16 on 64 real + 32 generated images a step) in "
+            f"{t1 - t0:.2f} s: set-up {made_s:.2f} s, {GAN_STAGE2} steps "
+            f"{steps_s:.2f} s, evaluate {eval_s:.2f} s; launches "
+            f"{ {k: counts[k] for k in STAGE2_KERNELS} }; {map_key} "
+            f"{m[map_key]:.6f}, {p_key} {m[p_key]:.6f} == numpy oracle "
+            f"within 1e-6; co-training step {step_ms:.3f} ms (host clock, "
+            f"{GAN_TIMED_STEPS} more steps)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print("phase 9 config2 stage I and co-training (PC-WGAN dim "
+          f"{gan.dim}, z {gan.z_dim}, 32x32x3, {base.data.n_classes} "
+          f"classes, batch {b}, n_critic {gan.n_critic}, "
+          f"{gan.compute_dtype}; {held_gb:.2f} GiB held on the card by the "
+          "earlier phases): " + " | ".join(lines), flush=True)
     return counts
 
 
@@ -1585,6 +1927,11 @@ def main() -> None:
     # Kernel 9 runs on this path only: its launches are the variants run's.
     launches["fullkey_scan_mma"] = measurement_path(torch, dev)[
         "fullkey_scan_mma"]
+
+    # ---- phase 9: config2 stage I and co-training ------------------------
+    # No TPU kernel is on the GAN's path; its evaluate() launches K1 and K4
+    # (checked in its own run; the kernels line keeps phase 4's and 7's).
+    gan_stage(torch, dev)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     stats["pm_groupmin_scan"].update(

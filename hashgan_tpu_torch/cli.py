@@ -1,18 +1,20 @@
 """Command-line interface of the port (port of ``hashgan_tpu/cli.py``).
 
-  python -m hashgan_tpu_torch train --config config1 --stage 2 [--iters N]
+  python -m hashgan_tpu_torch train --config config2 [--stage 1|2|all]
+      [--iters N]
   python -m hashgan_tpu_torch eval --config config1 [--workdir DIR]
   python -m hashgan_tpu_torch encode --config config1 --split query --out codes.npz
   python -m hashgan_tpu_torch build-index --config config1 --out gallery.npz
   python -m hashgan_tpu_torch query --gallery gallery.npz --k 10
   python -m hashgan_tpu_torch serve --gallery gallery.npz [--config config1]
 
-``--config`` takes a preset name or a path to a yaml override file. Every
-command runs on CUDA device ``--gpu`` (default 0) and fails without one.
-Galleries are the reference's npz artifacts (either package reads the
-other's). ``serve --config`` restores the encoder checkpoint of
-``--workdir`` (default ``cfg.train.workdir``) and answers image queries as
-well as code queries. Stage 1 (the GAN) is not ported.
+``train --stage 1`` trains the GAN (where the config has one), ``--stage
+2`` the encoder, ``--stage all`` both in turn. ``--config`` takes a preset
+name or a path to a yaml override file. Every command runs on CUDA device
+``--gpu`` (default 0) and fails without one. Galleries are the reference's
+npz artifacts (either package reads the other's). ``serve --config``
+restores the encoder checkpoint of ``--workdir`` (default
+``cfg.train.workdir``) and answers image queries as well as code queries.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 
 import numpy as np
 
@@ -47,22 +50,24 @@ def _experiment(args):
 
 
 def cmd_train(args) -> None:
-    # stage "all" runs the GAN first wherever the config has one
-    if args.stage == "1" or (args.stage == "all"
-                             and _load_config(args.config).use_gan):
-        raise NotImplementedError(
-            "stage 1 (the GAN) is not ported yet (ROADMAP.md); run "
-            "--stage 2")
     exp = _experiment(args)
+    cfg = exp.cfg
     if args.resume:
         exp.restore_checkpoint()
-    exp.train_encoder(args.iters)
-    print(json.dumps(exp.evaluate()))
+    elif args.stage == "2" and cfg.use_gan:
+        # stage 2 continues from stage 1's checkpoint, as in the reference
+        # (train_encoder also warns and trains on real images when no
+        # checkpoint holds a trained generator)
+        if exp.restore_checkpoint():
+            print("restored stage-1 checkpoint from workdir", file=sys.stderr)
+    if args.stage in ("1", "all") and cfg.use_gan:
+        exp.train_gan(args.iters)
+    if args.stage in ("2", "all"):
+        exp.train_encoder(args.iters)
+        print(json.dumps(exp.evaluate()))
 
 
 def cmd_eval(args) -> None:
-    import sys
-
     exp = _experiment(args)
     if not exp.restore_checkpoint():
         print("warning: no checkpoint found; evaluating random init",
@@ -144,8 +149,8 @@ def main(argv=None) -> None:
         parser.add_argument("--workdir", default=None)
         return with_gpu(parser, "runs the experiment")
 
-    t = with_config(sub.add_parser("train", help="train the encoder "
-                                                 "(stage 2)"))
+    t = with_config(sub.add_parser("train", help="train the GAN (stage 1) "
+                                                 "and the encoder (stage 2)"))
     t.add_argument("--stage", choices=("1", "2", "all"), default="all")
     t.add_argument("--iters", type=int, default=None)
     t.add_argument("--resume", action="store_true")

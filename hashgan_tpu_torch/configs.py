@@ -1,16 +1,15 @@
-"""Presets of the port: the reference's ``config1`` to ``config5`` and
-``config1_cal``, plus reference-style yaml overrides.
+"""Presets of the port: the reference's ``config1`` to ``config5``,
+``config1_cal``, ``config2_cal`` and ``config3_cal``, plus reference-style
+yaml overrides.
 
 The reference's typed config tree (``hashgan_tpu/configs/config.py``) also
-carries the GAN, mesh and list-file settings, which the port does not read
-yet: config2-4 keep ``use_gan=True``, and their stage II trains the encoder
-on real images only, as the reference does when no generator has been
-trained (``train/loop.py``). These dataclasses hold only what the port reads, under
-the reference's field names and with its defaults, so ``cfg.encoder.bits``
-means the same in both packages and a reference ``Config`` may be passed
-wherever the port takes one. One default differs on purpose:
-``train.workdir`` is ``/tmp/hashgan_tpu_torch``, so torch checkpoints never
-land in the reference's checkpoint directory.
+carries the mesh and list-file settings, which the port does not read yet.
+These dataclasses hold what the port reads, the GAN's settings among them,
+under the reference's field names and with its defaults, so
+``cfg.encoder.bits`` means the same in both packages and a reference
+``Config`` may be passed wherever the port takes one. One default differs on
+purpose: ``train.workdir`` is ``/tmp/hashgan_tpu_torch``, so torch
+checkpoints never land in the reference's checkpoint directory.
 """
 
 from __future__ import annotations
@@ -34,6 +33,34 @@ class DataConfig:
     n_database: int = 54000
     noise_scale: float = 40.0
     seed: int = 0
+
+
+@dataclass(frozen=True)
+class GanConfig:
+    """The PC-WGAN of stage I: architecture, losses and optimiser."""
+
+    dim: int = 128                    # base channel width
+    z_dim: int = 128
+    n_critic: int = 5                 # critic steps per generator step
+    gp_lambda: float = 10.0           # gradient-penalty weight
+    acgan_scale: float = 1.0          # aux classification loss on D (real)
+    acgan_scale_g: float = 0.1        # aux classification loss on G
+    lr: float = 2e-4
+    beta1: float = 0.0
+    beta2: float = 0.9
+    iters: int = 100_000              # generator iterations
+    decay_lr: bool = True             # linear decay to 0 over the run
+    ema_decay: float = 0.0            # generator weight EMA (0 = off)
+    compute_dtype: str = "bfloat16"   # parameters stay float32
+    d_layernorm: bool = False         # LayerNorm in the critic's res-blocks
+    acgan_fake_scale: float = 0.0     # aux CE on fakes in the critic loss
+    # per-stage width multipliers (x dim); None = constant width. G: the
+    # 4x4 input stage and each up-block; D: block_in, extra..., block_down,
+    # block_a, block_b
+    g_width_mults: Optional[Tuple[int, ...]] = None
+    d_width_mults: Optional[Tuple[int, ...]] = None
+    cond_label_norm: bool = False     # condition vectors scaled to unit sum
+    d_projection: bool = False        # projection critic: + <V y, phi(x)>
 
 
 @dataclass(frozen=True)
@@ -70,10 +97,15 @@ class TrainConfig:
     eval_every: int = 2000
     checkpoint_every: int = 2000
     log_every: int = 100
+    sample_every: int = 1000          # stage I: image grid + sample quality
     workdir: str = "/tmp/hashgan_tpu_torch"
     seed: int = 0
-    use_gan_samples: bool = True
+    use_gan_samples: bool = True      # stage II: real + generated images
+    fake_ratio: float = 0.5           # generated images per real one
+    fake_pair_weight: float = 1.0     # pair-loss weight of a generated image
     crop_pad: int = 0                 # pad-and-random-crop augmentation
+    prefetch: int = 2                 # the reference's feed depth; the port
+                                      # copies each batch without blocking
     epoch_shuffle: bool = False
     device_data: bool = False         # only the host batch feed is ported
     pair_sampling: str = "random"     # random | balanced
@@ -96,6 +128,7 @@ class EvalConfig:
 class Config:
     name: str = "cifar10_32bit_encoder_only"
     data: DataConfig = field(default_factory=DataConfig)
+    gan: GanConfig = field(default_factory=GanConfig)
     encoder: EncoderConfig = field(default_factory=EncoderConfig)
     hash_loss: HashLossConfig = field(default_factory=HashLossConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
@@ -124,6 +157,7 @@ def _cifar10_gan() -> Config:
     MAP@5000, with the GAN."""
     return Config(
         name="cifar10_48bit_gan",
+        gan=GanConfig(dim=128),
         encoder=EncoderConfig(arch="alexnet", bits=48),
         eval=EvalConfig(R=5000),
     )
@@ -138,6 +172,7 @@ def _nuswide_gan() -> Config:
         data=DataConfig(name="nuswide", n_classes=21, multi_label=True,
                         image_size=64, n_database=100_000, n_query=2100,
                         n_train=10_500),
+        gan=GanConfig(dim=128),
         encoder=EncoderConfig(arch="alexnet", bits=64),
         train=TrainConfig(pair_sampling="balanced"),
         eval=EvalConfig(R=5000),
@@ -151,8 +186,27 @@ def _imagenet100() -> Config:
         name="imagenet100_64bit",
         data=DataConfig(name="imagenet100", n_classes=100, image_size=64,
                         n_database=100_000, n_query=5000, n_train=13_000),
+        gan=GanConfig(dim=128),
         encoder=EncoderConfig(arch="resnet", bits=64),
     )
+
+
+def _cifar10_gan_cal() -> Config:
+    """``configs/config.py:299-316``: config2 with 100 classes and MAP@1000,
+    where MAP lands mid-range."""
+    cfg = _cifar10_gan()
+    return dataclasses.replace(
+        cfg, name="cifar10_48bit_gan_cal",
+        data=dataclasses.replace(cfg.data, n_classes=100),
+        eval=dataclasses.replace(cfg.eval, R=1000))
+
+
+def _nuswide_gan_cal() -> Config:
+    """``configs/config.py:319-326``: config3 over 100 concepts."""
+    cfg = _nuswide_gan()
+    return dataclasses.replace(
+        cfg, name="nuswide_64bit_gan_cal",
+        data=dataclasses.replace(cfg.data, n_classes=100))
 
 
 def _synthetic_1m_scan() -> Config:
@@ -174,12 +228,16 @@ _PRESETS = {
     "cifar10_48bit_gan": _cifar10_gan,
     "nuswide_64bit_gan": _nuswide_gan,
     "imagenet100_64bit": _imagenet100,
+    "cifar10_48bit_gan_cal": _cifar10_gan_cal,
+    "nuswide_64bit_gan_cal": _nuswide_gan_cal,
     "config1": _cifar10_encoder_only,
     "config1_cal": _cifar10_encoder_only_cal,
     "config2": _cifar10_gan,
     "config3": _nuswide_gan,
     "config4": _imagenet100,
     "config5": _synthetic_1m_scan,
+    "config2_cal": _cifar10_gan_cal,
+    "config3_cal": _nuswide_gan_cal,
 }
 
 

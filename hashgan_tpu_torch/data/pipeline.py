@@ -129,19 +129,26 @@ def to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def make_batch_feed(dataset, cfg, start_step: int, seed: int,
-                    device: torch.device,
+                    device: torch.device, n_batches: int = 1,
                     pair_balanced: bool = False) -> Iterator:
     """The training loop's batch feed: ``BatchIterator`` batches from
     ``start_step`` on, as (images uint8, labels float32) tensors on
-    ``device``. ``cfg.train.device_data`` (batches gathered from a split
+    ``device``. With ``n_batches > 1`` (the GAN's critic batches and its
+    generator batch) a step draws ``batch_size * n_batches`` examples and
+    stacks them as (n_batches, batch_size, ...), as the reference's host
+    feed does. ``cfg.train.device_data`` (batches gathered from a split
     held on the device) is not ported."""
     if cfg.train.device_data:
         raise NotImplementedError(
             "train.device_data=True (the device-resident batch feed) is not "
             "ported yet (ROADMAP.md)")
-    it = BatchIterator(dataset, cfg.train.batch_size, seed=seed,
+    b = cfg.train.batch_size
+    it = BatchIterator(dataset, b * n_batches, seed=seed,
                        start_step=start_step,
                        epoch_shuffle=cfg.train.epoch_shuffle,
                        pair_balanced=pair_balanced)
+    if n_batches > 1:
+        it = ((images.reshape((n_batches, b) + images.shape[1:]),
+               labels.reshape(n_batches, b, -1)) for images, labels in it)
     return ((to_device(images, device), to_device(labels, device))
             for images, labels in it)

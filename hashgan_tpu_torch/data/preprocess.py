@@ -1,5 +1,6 @@
-"""Encoder input preprocessing and augmentation (port of
-``hashgan_tpu/data/preprocess.py:15-33, 43-46, 102-112``).
+"""Input preprocessing and augmentation (port of
+``hashgan_tpu/data/preprocess.py:15-46, 102-112``): the GAN's [-1, 1] range,
+the encoder's mean-subtracted input, flips and crops.
 
 Images stay uint8 until they are on the device; normalisation happens there.
 The augmentations draw their random numbers on the CPU from a
@@ -13,6 +14,7 @@ through ``flip_images``.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -29,9 +31,25 @@ def _mean_rgb(device: torch.device) -> torch.Tensor:
     return torch.tensor(ALEXNET_MEAN_RGB, dtype=torch.float32, device=device)
 
 
+def to_gan_range(images_u8: torch.Tensor) -> torch.Tensor:
+    """uint8 [0, 255] -> float32 [-1, 1] (G's tanh range)."""
+    return images_u8.to(torch.float32) / 127.5 - 1.0
+
+
+def from_gan_range(images: torch.Tensor) -> torch.Tensor:
+    """[-1, 1] -> uint8 [0, 255] (truncated, as the reference's cast)."""
+    return ((images + 1.0) * 127.5).clamp(0, 255).to(torch.uint8)
+
+
 def to_encoder_input(images_u8: torch.Tensor) -> torch.Tensor:
     """(B, H, W, 3) uint8 -> mean-subtracted float32, NHWC like the reference."""
     return images_u8.to(torch.float32) - _mean_rgb(images_u8.device)
+
+
+def gan_to_encoder_input(images_gan: torch.Tensor) -> torch.Tensor:
+    """G's output in [-1, 1] -> the encoder's input (stage II trains on real
+    and generated images in one batch)."""
+    return (images_gan + 1.0) * 127.5 - _mean_rgb(images_gan.device)
 
 
 _AUGMENT_TAG = 0xA067  # keeps these draws apart from the batch sampler's
@@ -47,9 +65,9 @@ def step_generator(seed: int, step: int) -> torch.Generator:
 
 def _on(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     """A small CPU tensor on ``device`` without stalling the host."""
-    if device.type == "cuda":
+    if device.type == "cuda" and t.device.type == "cpu":
         return t.pin_memory().to(device, non_blocking=True)
-    return t
+    return t.to(device)
 
 
 def flip_images(images: torch.Tensor, flip: torch.Tensor) -> torch.Tensor:
@@ -58,9 +76,12 @@ def flip_images(images: torch.Tensor, flip: torch.Tensor) -> torch.Tensor:
     return torch.where(flip.view(-1, 1, 1, 1), images.flip(2), images)
 
 
-def random_flip(generator: torch.Generator, images: torch.Tensor) -> torch.Tensor:
-    """Per-example horizontal flip with probability 1/2."""
-    flip = torch.rand(images.shape[0], generator=generator) < 0.5
+def random_flip(generator: torch.Generator, images: torch.Tensor,
+                flip: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-example horizontal flip with probability 1/2, or by the given
+    (B,) bool mask (the parity tests feed the reference's)."""
+    if flip is None:
+        flip = torch.rand(images.shape[0], generator=generator) < 0.5
     return flip_images(images, _on(flip, images.device))
 
 

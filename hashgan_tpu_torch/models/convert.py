@@ -1,4 +1,4 @@
-"""Carry encoder weights from a Flax parameter tree to the port.
+"""Carry encoder and GAN weights from Flax parameter trees to the port.
 
 ``flax_to_torch(params)`` takes the ``params`` tree of one of the
 reference's encoders as nested dicts of numpy arrays (``jax.device_get`` of
@@ -13,11 +13,19 @@ port's module of the same architecture (told apart by the tree's keys):
   auto-named ``GroupNorm_<i>`` of each module, in module order, -> the
   port's named norms (SmallCNN ``norm{stage}{a|b}``, ResNet ``stem_norm``
   and each block's ``norm1``/``norm2``).
+
+``gan_flax_to_torch(g_params, g_stats, d_params)`` does the same for the
+PC-WGAN (``models/gan.py``): G's ``params`` and ``batch_stats`` trees and
+D's ``params`` give the two modules' state dicts. Besides the above, each
+block's ``CondBatchNorm_0``/``_1`` ``gamma``/``beta`` tables go to
+``bn1``/``bn2``, their ``BatchNorm_0`` ``mean``/``var`` statistics to the
+norms' buffers, ``out_bn``'s ``scale`` to ``weight``, and the critic
+blocks' ``LayerNorm_0``/``_1`` to ``ln1``/``ln2``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -74,3 +82,70 @@ def flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
         raise ValueError(f"not an encoder tree the port knows: {sorted(params)}")
     _dense(sd, "hash.hash_fc", params["hash"]["hash_fc"])
     return sd
+
+
+def _gen_bn(sd: Dict, name: str, p: Mapping, stats: Mapping) -> None:
+    sd[f"{name}.gamma"] = _tensor(p["gamma"])
+    sd[f"{name}.beta"] = _tensor(p["beta"])
+    sd[f"{name}.norm.mean"] = _tensor(stats["BatchNorm_0"]["mean"])
+    sd[f"{name}.norm.var"] = _tensor(stats["BatchNorm_0"]["var"])
+
+
+def _disc_block(sd: Dict, name: str, p: Mapping) -> None:
+    for conv in ("conv1", "conv2", "skip"):
+        if conv in p:
+            _conv(sd, f"{name}.{conv}", p[conv])
+    for i in range(2):
+        if f"LayerNorm_{i}" in p:
+            _norm(sd, f"{name}.ln{i + 1}", p[f"LayerNorm_{i}"])
+
+
+def generator_flax_to_torch(g_params: Mapping, g_stats: Mapping
+                            ) -> Dict[str, torch.Tensor]:
+    """G's state dict from its ``params`` and ``batch_stats`` trees."""
+    g: Dict[str, torch.Tensor] = {}
+    if "label_embed" in g_params:
+        _dense(g, "label_embed", g_params["label_embed"])
+    _dense(g, "input", g_params["input"])
+    i = 0
+    while f"block{i}" in g_params:
+        p, st = g_params[f"block{i}"], g_stats[f"block{i}"]
+        name = f"blocks.{i}"
+        for j in range(2):
+            _gen_bn(g, f"{name}.bn{j + 1}", p[f"CondBatchNorm_{j}"],
+                    st[f"CondBatchNorm_{j}"])
+        for conv in ("conv1", "conv2", "skip"):
+            if conv in p:
+                _conv(g, f"{name}.{conv}", p[conv])
+        i += 1
+    _norm(g, "out_bn", g_params["out_bn"])
+    g["out_bn.mean"] = _tensor(g_stats["out_bn"]["mean"])
+    g["out_bn.var"] = _tensor(g_stats["out_bn"]["var"])
+    _conv(g, "out_conv", g_params["out_conv"])
+    return g
+
+
+def discriminator_flax_to_torch(d_params: Mapping) -> Dict[str, torch.Tensor]:
+    """D's state dict from its ``params`` tree."""
+    d: Dict[str, torch.Tensor] = {}
+    _disc_block(d, "block_in", d_params["block_in"])
+    i = 0
+    while f"block_extra{i}" in d_params:
+        _disc_block(d, f"block_extra.{i}", d_params[f"block_extra{i}"])
+        i += 1
+    for name in ("block_down", "block_a", "block_b"):
+        _disc_block(d, name, d_params[name])
+    _dense(d, "critic", d_params["critic"])
+    _dense(d, "aux", d_params["aux"])
+    if "proj_embed" in d_params:
+        d["proj_embed.weight"] = _tensor(
+            d_params["proj_embed"]["kernel"]).t().contiguous()
+    return d
+
+
+def gan_flax_to_torch(g_params: Mapping, g_stats: Mapping, d_params: Mapping
+                      ) -> Tuple[Dict[str, torch.Tensor],
+                                 Dict[str, torch.Tensor]]:
+    """(G's state dict, D's state dict) from the reference's trees."""
+    return (generator_flax_to_torch(g_params, g_stats),
+            discriminator_flax_to_torch(d_params))

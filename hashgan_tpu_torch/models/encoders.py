@@ -60,7 +60,8 @@ def init_like_flax(module: nn.Module,
                 std = math.sqrt(1.0 / fan_in) / _FLAX_TRUNC_STD
                 nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std,
                                       2 * std, generator=generator)
-            nn.init.zeros_(m.bias)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
         elif isinstance(m, (nn.GroupNorm, nn.LayerNorm)):
             nn.init.ones_(m.weight)
             nn.init.zeros_(m.bias)

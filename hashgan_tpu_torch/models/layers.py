@@ -1,10 +1,14 @@
-"""Shared layers of the port's encoders (port of
-``hashgan_tpu/models/layers.py:60-79``; the GAN's conditional batch norm
-comes with the GAN)."""
+"""Shared layers (port of ``hashgan_tpu/models/layers.py``): AlexNet's
+LRN, and the GAN's normalisations with Flax's numerics (the batch norm of
+``flax.linen.BatchNorm``, the conditional batch norm, and Flax's
+``LayerNorm`` over channels)."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+from torch import nn
 
 
 def local_response_norm(x: torch.Tensor, radius: int = 2, alpha: float = 2e-5,
@@ -28,3 +32,85 @@ def local_response_norm(x: torch.Tensor, radius: int = 2, alpha: float = 2e-5,
     for i in range(2 * radius + 1):
         acc = acc + padded.narrow(dim, i, c)
     return x / torch.pow(bias + alpha * acc, beta)
+
+
+class BatchNorm(nn.Module):
+    """Flax's ``nn.BatchNorm`` over (N, H, W) of an NCHW tensor.
+
+    Flax's conventions, which torch's ``F.batch_norm`` does not share:
+
+    - the running averages move as ``m * avg + (1 - m) * batch`` with
+      ``momentum`` m = 0.9 (torch's ``momentum=0.1``), and the running
+      variance takes the *biased* batch variance (torch's the unbiased);
+    - statistics and normalisation are float32 whatever the input's dtype,
+      cast to ``dtype`` (default: the input's) at the end. Flax takes the
+      variance as E[x^2] - mean^2; torch's fused kernel and ``var_mean``
+      take it directly, which differs by rounding only.
+
+    ``forward(x, train, update)``: batch statistics when ``train`` (written
+    into the ``mean`` / ``var`` buffers only when ``update``: the GAN's
+    critic steps run G in train mode and discard them), the running ones
+    otherwise."""
+
+    def __init__(self, features: int, affine: bool = True,
+                 momentum: float = 0.9, eps: float = 1e-5,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.momentum, self.eps, self.dtype = momentum, eps, dtype
+        self.weight = nn.Parameter(torch.ones(features)) if affine else None
+        self.bias = nn.Parameter(torch.zeros(features)) if affine else None
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor, train: bool = True,
+                update: bool = True) -> torch.Tensor:
+        xf = x.float()
+        if train and update:
+            with torch.no_grad():
+                var, mean = torch.var_mean(xf, dim=(0, 2, 3),
+                                           correction=0)
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+                self.var.copy_(m * self.var + (1.0 - m) * var)
+        # one fused normalisation; with ``train`` it takes the batch's own
+        # biased statistics, as Flax does
+        y = torch.nn.functional.batch_norm(
+            xf, None if train else self.mean, None if train else self.var,
+            self.weight, self.bias, training=train, eps=self.eps)
+        return y.to(self.dtype or x.dtype)
+
+
+class CondBatchNorm(nn.Module):
+    """Batch norm whose gain and bias are affine in the label vector (port
+    of ``hashgan_tpu/models/layers.py:19-57``): ``gamma(y) = 1 + y @ G``,
+    ``beta(y) = y @ B``, for one-hot y a per-class table. The tables are
+    float32 and the products are cast to the activation's dtype, where the
+    modulation runs; the statistics are ``BatchNorm``'s without scale or
+    bias."""
+
+    def __init__(self, n_labels: int, features: int):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.zeros(n_labels, features))
+        self.beta = nn.Parameter(torch.zeros(n_labels, features))
+        self.norm = BatchNorm(features, affine=False)
+
+    def forward(self, x: torch.Tensor, labels: torch.Tensor,
+                train: bool = True, update: bool = True) -> torch.Tensor:
+        h = self.norm(x, train, update)
+        labels = labels.float()
+        gamma = (1.0 + labels @ self.gamma).to(x.dtype)[:, :, None, None]
+        beta = (labels @ self.beta).to(x.dtype)[:, :, None, None]
+        return h * gamma + beta
+
+
+def layer_norm_channels(x: torch.Tensor, norm: nn.LayerNorm,
+                        dtype: torch.dtype) -> torch.Tensor:
+    """Flax's ``nn.LayerNorm`` on an NHWC tensor, applied to NCHW ``x``:
+    each pixel normalised over its channels (dim 1, not (C, H, W)), with
+    float32 statistics (E[x^2] - mean^2, clipped at 0), ``norm.eps`` and
+    float32 scale and bias, cast to ``dtype``."""
+    xf = x.float()
+    mean = xf.mean(dim=1, keepdim=True)
+    var = ((xf * xf).mean(dim=1, keepdim=True) - mean * mean).clamp_min(0.0)
+    mul = torch.rsqrt(var + norm.eps) * norm.weight.view(1, -1, 1, 1)
+    return ((xf - mean) * mul + norm.bias.view(1, -1, 1, 1)).to(dtype)

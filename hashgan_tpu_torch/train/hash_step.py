@@ -7,9 +7,10 @@ besides the flip (and crop) draws. The step's random draws come from
 ``data/preprocess.py::step_generator(seed, step)``, which every encoder's
 forward also receives (AlexNet seeds its dropout masks from it), so a step
 is a pure function of its inputs and a resumed run repeats it exactly.
-Training against GAN samples (``fake_ratio``) and the AlexNet input geometry
-are not ported; without a trained generator the reference's step trains on
-real images alone, which is this step.
+Given a generator, a step also trains on generated images (the reference's
+``hash_step.py:66-89``): ``max(1, int(B * fake_ratio))`` fakes conditioned
+on the first labels of the batch, which they inherit. The AlexNet input
+geometry is not ported.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ import torch
 from torch import nn
 
 from hashgan_tpu_torch.data.preprocess import (
+    _on,
+    gan_to_encoder_input,
     random_crop,
     random_flip,
     step_generator,
@@ -40,13 +43,14 @@ def _check_ported(cfg) -> None:
 def encoder_loss_and_grad(encoder: nn.Module, x: torch.Tensor,
                           labels: torch.Tensor, cfg,
                           generator: Optional[torch.Generator] = None,
+                          sample_weight: Optional[torch.Tensor] = None,
                           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Forward the already-augmented encoder inputs ``x`` (mean-subtracted
     float32, NHWC) in train mode, take the WML loss of ``cfg.hash_loss``
-    against ``labels``, and backpropagate: the gradients are left in the
-    parameters' ``.grad`` (set anew, not accumulated). ``generator`` is the
-    step's, for an encoder that draws (AlexNet's dropout). Returns (loss,
-    metrics)."""
+    against ``labels`` (pairs weighted by ``sample_weight``, when given),
+    and backpropagate: the gradients are left in the parameters' ``.grad``
+    (set anew, not accumulated). ``generator`` is the step's, for an
+    encoder that draws (AlexNet's dropout). Returns (loss, metrics)."""
     hl = cfg.hash_loss
     encoder.train()
     encoder.zero_grad(set_to_none=True)
@@ -57,30 +61,65 @@ def encoder_loss_and_grad(encoder: nn.Module, x: torch.Tensor,
         class_balance_cap=hl.class_balance_cap,
         class_balance_mode=hl.class_balance_mode,
         quantization_weight=hl.quantization_weight,
-        balance_weight=hl.balance_weight)
+        balance_weight=hl.balance_weight, sample_weight=sample_weight)
     loss.backward()
     return loss, metrics
 
 
+def add_fakes(x: torch.Tensor, labels: torch.Tensor, cfg,
+              sample: Callable, z: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Real encoder inputs ``x`` (B, ...) and their labels, extended by
+    ``len(z)`` generated images conditioned on ``labels[:len(z)]`` (which
+    they inherit); ``sample(z, labels)`` gives G's [-1, 1] images without a
+    gradient. Returns (inputs, labels, per-sample pair weights or None):
+    the weights, 1 for real and ``cfg.train.fake_pair_weight`` for
+    generated images, only where that weight is not 1."""
+    n, n_fake = x.shape[0], z.shape[0]
+    fake_labels = labels[:n_fake]
+    fake = gan_to_encoder_input(sample(z, fake_labels))
+    weights = None
+    w = cfg.train.fake_pair_weight
+    if w != 1.0:
+        weights = torch.cat([
+            torch.ones(n, dtype=torch.float32, device=x.device),
+            torch.full((n_fake,), w, dtype=torch.float32, device=x.device)])
+    return (torch.cat([x, fake]), torch.cat([labels, fake_labels]), weights)
+
+
 def make_encoder_train_step(cfg) -> Callable:
-    """``step(state, images_u8, labels) -> metrics`` on real images:
-    updates ``state`` (an ``EncoderState``) in place, advances
+    """``step(state, images_u8, labels, sample=None, flip=None, z=None) ->
+    metrics``: updates ``state`` (an ``EncoderState``) in place, advances
     ``state.step``, and returns the loss metrics as 0-dim tensors on the
     device (reading them synchronises; the loop does so at log points
     only). ``images_u8`` (B, H, W, C) uint8 and ``labels`` (B, K) float32
-    are tensors on the encoder's device."""
+    are tensors on the encoder's device. With ``sample`` (G's sampler, see
+    ``add_fakes``) the batch is extended by ``max(1, int(B * fake_ratio))``
+    generated images, after the flip (and crop) of the real ones. ``flip``
+    (B,) bool and ``z`` (n_fake, z_dim) replace the step's own draws (the
+    parity tests feed the reference's)."""
     _check_ported(cfg)
     crop_pad = cfg.train.crop_pad
     seed = cfg.train.seed
 
     def step(state: EncoderState, images_u8: torch.Tensor,
-             labels: torch.Tensor) -> Dict[str, torch.Tensor]:
+             labels: torch.Tensor, sample: Optional[Callable] = None,
+             flip: Optional[torch.Tensor] = None,
+             z: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         gen = step_generator(seed, state.step)
-        x = random_flip(gen, to_encoder_input(images_u8))
+        x = random_flip(gen, to_encoder_input(images_u8), flip)
         if crop_pad > 0:
             x = random_crop(gen, x, pad=crop_pad)
+        weights = None
+        if sample is not None:
+            if z is None:
+                n_fake = max(1, int(x.shape[0] * cfg.train.fake_ratio))
+                z = torch.randn(n_fake, cfg.gan.z_dim, generator=gen)
+            x, labels, weights = add_fakes(x, labels, cfg, sample,
+                                           _on(z, x.device))
         _, metrics = encoder_loss_and_grad(state.module, x, labels, cfg,
-                                           generator=gen)
+                                           generator=gen,
+                                           sample_weight=weights)
         state.optimizer.step()
         if state.scheduler is not None:
             state.scheduler.step()

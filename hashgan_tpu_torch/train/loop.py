@@ -1,30 +1,34 @@
-"""Experiment orchestration for stage II: train the hash encoder, evaluate by
-Hamming ranking, build the index (port of the stage-II part of
-``hashgan_tpu/train/loop.py``).
+"""Experiment orchestration (port of ``hashgan_tpu/train/loop.py``): stage I
+trains the PC-WGAN, stage II the hash encoder on real and generated images,
+then Hamming-ranking evaluation and the index.
 
+- ``train_gan``: PC-WGAN cycles (``n_critic`` critic steps and one generator
+  step each) on the host batch feed, with the reference's log, sample-grid,
+  sample-quality and checkpoint boundaries (``:117-218``);
 - ``train_encoder``: the host-batch path of the reference (``:494-513``),
-  with its log / eval / checkpoint boundaries (``:416-427``) and the
-  saturation guard;
+  with its log / eval / checkpoint boundaries (``:416-427``), the
+  saturation guard, and the stage-II guard (``:279-327``): a config that
+  asks for GAN samples restores the workdir's checkpoint while the GAN has
+  never stepped, and trains on real images alone, with a warning, when
+  none holds a trained generator;
 - ``evaluate``: encode -> pack -> Hamming kernel -> exact MAP@R and P@H<=r
   (or, past ``streaming_threshold``, tie-aware MAP from distance
   histograms), and the PR / precision@top-N curves in the workdir;
 - ``build_index``: the packed gallery artifact;
-- ``save_checkpoint`` / ``restore_checkpoint``: bit-exact resume.
+- ``save_checkpoint`` / ``restore_checkpoint``: the encoder and the GAN,
+  for bit-exact resume.
 
 One device, no mesh and no device-resident batch feed: those raise, naming
-ROADMAP.md. No generator is ported yet (ROADMAP.md, GAN stage I), so a
-config that asks for GAN samples (``use_gan`` and
-``train.use_gan_samples``) trains the encoder on real images only, with the
-reference's warning for a generator that was never trained. The experiment
-runs on the first CUDA device unless the caller passes ``device="cpu"`` (as
-the tests do).
+ROADMAP.md. The experiment runs on the first CUDA device unless the caller
+passes ``device="cpu"`` (as the tests do).
 """
 
 from __future__ import annotations
 
+import json
 import os
 import warnings
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +38,10 @@ from hashgan_tpu_torch.data.synthetic import make_splits, synth_generation_key
 from hashgan_tpu_torch.eval.map import (
     device_map_at_r,
     device_precision_at_radius,
+)
+from hashgan_tpu_torch.eval.sample_quality import (
+    make_template_classifier,
+    sample_quality_report,
 )
 from hashgan_tpu_torch.eval.streaming import (
     device_distance_histograms,
@@ -49,13 +57,15 @@ from hashgan_tpu_torch.train.hash_step import (
     make_encode_fn,
     make_encoder_train_step,
 )
-from hashgan_tpu_torch.train.state import create_encoder_state
+from hashgan_tpu_torch.train.gan_step import make_gan_cycle, sample_images
+from hashgan_tpu_torch.train.state import create_encoder_state, create_gan_state
 from hashgan_tpu_torch.utils.checkpoint import (
     CheckpointManager,
     check_provenance,
     write_provenance,
 )
 from hashgan_tpu_torch.utils.device import require_cuda, set_numerics
+from hashgan_tpu_torch.utils.images import save_image_grid
 from hashgan_tpu_torch.utils.logging import MetricsLogger
 
 
@@ -77,10 +87,83 @@ class Experiment:
         self.encoder = self.encoder_state.module
         self._encode = make_encode_fn(self.encoder, cfg)
         self._saturation_warned = False
-        # GAN samples in stage II need a trained generator, and the port has
-        # none yet: such a config trains on real images (_stage2_guard)
+        self.gan_state = (create_gan_state(cfg, self.device) if cfg.use_gan
+                          else None)
+        self._gan_cycle = make_gan_cycle(cfg) if cfg.use_gan else None
         self._enc_uses_gan = cfg.use_gan and cfg.train.use_gan_samples
         self.ckpt = CheckpointManager(self.workdir)
+
+    # ------------------------------------------------------------------
+    # Stage I: PC-WGAN
+    # ------------------------------------------------------------------
+    def train_gan(self, iters: Optional[int] = None) -> Dict[str, float]:
+        """``iters`` cycles (default ``cfg.gan.iters``) from the current GAN
+        step on. Returns the means of the last flushed log."""
+        if self.gan_state is None:
+            raise ValueError(f"config {self.cfg.name!r} has no GAN "
+                             "(use_gan is false)")
+        cfg = self.cfg
+        iters = iters if iters is not None else cfg.gan.iters
+        st = self.gan_state
+        means: Dict[str, float] = {}
+        batches = make_batch_feed(
+            self.splits["train"], cfg, start_step=st.step,
+            seed=cfg.train.seed, device=self.device,
+            n_batches=cfg.gan.n_critic + 1)
+        for _ in range(iters):
+            images, labels = next(batches)
+            metrics = self._gan_cycle(st, images, labels)
+            step = st.step
+            if step % cfg.train.log_every == 0:
+                self.logger.log(step, {k: float(v) for k, v in metrics.items()})
+                means = self.logger.flush(step)
+            if step % cfg.train.sample_every == 0:
+                self.dump_samples(step)
+                self.logger.log(step, self.sample_quality())
+            if step % cfg.train.checkpoint_every == 0:
+                self.save_checkpoint()
+        return means
+
+    def _sample(self, z: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """G's images (live weights, running averages, no gradient): what
+        sample quality scores and stage II trains on."""
+        return sample_images(self.gan_state, z, labels)
+
+    def sample_quality(self) -> Dict[str, float]:
+        """Inception score, conditional accuracy and marginal label entropy
+        of G's samples, scored by the critic's aux head (``*_aux``) and, on
+        synthetic data, by the frozen template classifier (``*_tmpl``)."""
+        k = self.cfg.data.n_classes
+        common = dict(seed=7, n_labels=k, z_dim=self.cfg.gan.z_dim,
+                      device=self.device, n_samples=min(512, 8 * k * 8),
+                      multi_label=self.cfg.data.multi_label)
+        d = self.gan_state.discriminator
+        report = sample_quality_report(self._sample, lambda x: d(x)[1],
+                                       key_suffix="_aux", **common)
+        templates = getattr(self.splits["train"], "templates", None)
+        if templates is not None:
+            report.update(sample_quality_report(
+                self._sample,
+                make_template_classifier(templates, device=self.device),
+                key_suffix="_tmpl", **common))
+        return report
+
+    def dump_samples(self, step: int) -> None:
+        """``samples_<step>.png``: up to 64 samples, ``64 // n_classes`` a
+        class, from the EMA weights and EMA statistics where they are kept
+        (else the live ones), with a fixed z."""
+        if self.gan_state is None:
+            return
+        k = self.cfg.data.n_classes
+        labels = np.repeat(np.eye(k, dtype=np.float32), max(1, 64 // k),
+                           axis=0)[:64]
+        z = torch.randn(labels.shape[0], self.cfg.gan.z_dim,
+                        generator=torch.Generator().manual_seed(0))
+        images = sample_images(self.gan_state, z.to(self.device),
+                               torch.from_numpy(labels).to(self.device),
+                               ema=True)
+        save_image_grid(images.cpu().numpy(),
+                        os.path.join(self.workdir, f"samples_{step}.png"))
 
     # ------------------------------------------------------------------
     # Stage II: hash encoder
@@ -105,19 +188,62 @@ class Experiment:
                 "protocol setting); restart stage II from init.",
                 stacklevel=2)
 
-    def _stage2_guard(self) -> None:
+    def _stage2_guard(self) -> Tuple[bool, Callable]:
         """The reference's refusal to co-train against an untrained
-        generator (``train/loop.py:280-307``): where GAN samples are asked
-        for and the generator has never stepped and no checkpoint holds one,
-        it warns and trains on real images only. The port has no generator,
-        so that is every such run."""
-        if self._enc_uses_gan:
+        generator (``train/loop.py:279-327``). Where GAN samples are asked
+        for and the GAN has never stepped, it restores the workdir's
+        checkpoint (on every call, so steps held only in memory roll back,
+        as in the reference); if the GAN has still never stepped, it warns
+        and trains on real images only. With a trained GAN it warns when
+        the last logged Wasserstein estimate (the projection-free one where
+        logged) is past 10 in magnitude. Returns (use_gan, step_fn), with
+        ``step_fn(state, images, labels)``."""
+        if not self._enc_uses_gan:
+            return False, self._enc_step
+        if self.gan_state.step == 0:
+            self.restore_checkpoint()
+            if self.gan_state.step == 0:
+                warnings.warn(
+                    "stage-II requested GAN sample augmentation but the "
+                    "generator has never been trained and no checkpoint "
+                    "exists; training the encoder on real images only. "
+                    "Run stage 1 first (or pass --resume).",
+                    stacklevel=3)
+                return False, self._enc_step
+        w = self._last_logged("wasserstein_noproj")
+        if w is None:
+            w = self._last_logged("wasserstein")
+        if w is not None and abs(w) > 10.0:
+            # the reference names "Wasserstein" whichever estimate it read
             warnings.warn(
-                "stage-II requested GAN sample augmentation but the "
-                "generator has never been trained and no checkpoint "
-                "exists; training the encoder on real images only. "
-                "Run stage 1 first (or pass --resume).",
+                f"stage-I looks unconverged (last Wasserstein {w:.1f}; "
+                "healthy runs settle around 2-3): co-training on its "
+                "samples measurably hurts MAP. Consider more stage-1 "
+                "iters, or lowering train.fake_ratio / setting "
+                "train.use_gan_samples=false.",
                 stacklevel=3)
+
+        def step_fn(state, images, labels):
+            return self._enc_step(state, images, labels, sample=self._sample)
+
+        return True, step_fn
+
+    def _last_logged(self, key: str):
+        """The last value of ``key`` in this workdir's metrics.jsonl (None
+        where absent): stage II reads stage I's health from it."""
+        val = None
+        try:
+            with open(os.path.join(self.workdir, "metrics.jsonl")) as f:
+                for line in f:
+                    try:
+                        rec = json.loads(line)
+                    except ValueError:
+                        continue
+                    if key in rec:
+                        val = rec[key]
+        except OSError:
+            return None
+        return val
 
     def train_encoder(self, iters: Optional[int] = None,
                       eval_during: bool = True) -> Dict[str, float]:
@@ -138,7 +264,7 @@ class Experiment:
                 "encoder.hash_lr_multiplier=1.0 or provide "
                 "encoder.pretrained_npy.",
                 stacklevel=2)
-        self._stage2_guard()
+        _, step_fn = self._stage2_guard()
         means: Dict[str, float] = {}
         batches = make_batch_feed(
             self.splits["train"], cfg, start_step=state.step,
@@ -146,7 +272,7 @@ class Experiment:
             pair_balanced=(cfg.train.pair_sampling == "balanced"))
         for _ in range(iters):
             images, labels = next(batches)
-            metrics = self._enc_step(state, images, labels)
+            metrics = step_fn(state, images, labels)
             step = state.step
             if step % cfg.train.log_every == 0:
                 host = {k: float(v) for k, v in metrics.items()}
@@ -265,20 +391,43 @@ class Experiment:
         return "synth:" + synth_generation_key(self.cfg.data)
 
     def save_checkpoint(self) -> None:
+        """The encoder (module, optimiser, schedule, step) and, with a GAN,
+        G (its running averages among its buffers), D, both optimisers and
+        schedules, the EMA copies and the GAN step, under the step number
+        encoder step + GAN step, as the reference counts it."""
         st = self.encoder_state
-        self.ckpt.save(st.step, {
+        state = {
             "encoder": st.module.state_dict(),
             "optimizer": st.optimizer.state_dict(),
             "scheduler": (None if st.scheduler is None
                           else st.scheduler.state_dict()),
             "step": st.step,
-        })
+        }
+        gs = self.gan_state
+        if gs is not None:
+            state["gan"] = {
+                "generator": gs.generator.state_dict(),
+                "discriminator": gs.discriminator.state_dict(),
+                "g_opt": gs.g_opt.state_dict(),
+                "g_sched": (None if gs.g_sched is None
+                            else gs.g_sched.state_dict()),
+                "d_opt": gs.d_opt.state_dict(),
+                "d_sched": (None if gs.d_sched is None
+                            else gs.d_sched.state_dict()),
+                "step": gs.step,
+                "g_ema": gs.g_ema,
+                "g_ema_stats": gs.g_ema_stats,
+            }
+        self.ckpt.save(st.step + (gs.step if gs is not None else 0), state)
         write_provenance(self.workdir, self._data_provenance())
 
     def restore_checkpoint(self) -> bool:
         """Restore the latest checkpoint of the workdir; False when there
         is none. Raises when it was trained on other data, or with another
-        optimiser layout (a changed ``hash_lr_multiplier``)."""
+        optimiser layout (a changed ``hash_lr_multiplier``). A checkpoint
+        without a GAN leaves the GAN state as it is; one with an EMA of G's
+        weights but none of its statistics seeds the latter from the
+        restored statistics (the reference's migration)."""
         saved = self.ckpt.restore()
         if saved is None:
             return False
@@ -296,18 +445,36 @@ class Experiment:
         if st.scheduler is not None and saved["scheduler"] is not None:
             st.scheduler.load_state_dict(saved["scheduler"])
         st.step = int(saved["step"])
+        gan = saved.get("gan")
+        if self.gan_state is not None and gan is not None:
+            self._restore_gan(gan)
         return True
+
+    def _restore_gan(self, gan: dict) -> None:
+        gs = self.gan_state
+        gs.generator.load_state_dict(gan["generator"])
+        gs.discriminator.load_state_dict(gan["discriminator"])
+        for opt, sched, name in ((gs.g_opt, gs.g_sched, "g"),
+                                 (gs.d_opt, gs.d_sched, "d")):
+            opt.load_state_dict(gan[f"{name}_opt"])
+            if sched is not None and gan[f"{name}_sched"] is not None:
+                sched.load_state_dict(gan[f"{name}_sched"])
+        gs.step = int(gan["step"])
+        if gs.g_ema is not None and gan["g_ema"] is not None:
+            stats = gan["g_ema_stats"]
+            if stats is None:
+                stats = dict(gs.generator.named_buffers())
+            gs.g_ema = {k: v.to(self.device).clone()
+                        for k, v in gan["g_ema"].items()}
+            gs.g_ema_stats = {k: v.to(self.device).clone()
+                              for k, v in stats.items()}
 
     # ------------------------------------------------------------------
     def run(self) -> Dict[str, float]:
-        """The whole pipeline of the config: encoder training, then eval.
-        The reference trains the GAN first where ``cfg.use_gan``; stage I is
-        not ported, so such a config raises here (``train_encoder`` runs
-        its stage II alone)."""
+        """The whole pipeline of the config: the GAN where ``cfg.use_gan``,
+        then the encoder, then evaluation."""
         if self.cfg.use_gan:
-            raise NotImplementedError(
-                "stage 1 (the GAN) is not ported yet (ROADMAP.md); "
-                "train_encoder() runs stage 2 alone")
+            self.train_gan()
         self.train_encoder()
         metrics = self.evaluate()
         self.logger.log(self.encoder_state.step, metrics)

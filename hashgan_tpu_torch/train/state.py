@@ -1,5 +1,5 @@
-"""The encoder's training state and optimiser (port of
-``hashgan_tpu/train/state.py:68-82, 160-163, 222-239``).
+"""Training states and optimisers of the encoder and the GAN (port of
+``hashgan_tpu/train/state.py``).
 
 The reference's encoder optimiser is ``optax.adam(lr)`` (beta1 0.9, beta2
 0.999, eps 1e-8), chained with a 10x ``optax.scale`` on the ``hash`` subtree
@@ -8,19 +8,26 @@ with eps inside, so scaling it by 10 is exactly a parameter group at 10x
 lr: the port uses two groups of ``torch.optim.Adam``. ``decay_lr`` is
 ``optax.linear_schedule(lr, 0, iters)``, which counts updates from 0, so a
 ``LambdaLR`` with factor ``1 - c / iters`` gives the first update the full
-lr. (Beta1 0 and beta2 0.9 are the GAN's, not the encoder's.)
+lr.
+
+The GAN's optimisers are ``optax.adam(lr, b1=0, b2=0.9)`` (eps 1e-8) with
+``linear_schedule(lr, 0, iters * updates_per_iter)``: G takes one update a
+cycle and D ``n_critic``, so D's horizon is stretched by ``n_critic``
+(``make_gan_tx``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from hashgan_tpu_torch.models.alexnet import load_bvlc_weights
 from hashgan_tpu_torch.models.encoders import build_encoder, dtype_from_name
+from hashgan_tpu_torch.models.gan import Discriminator, Generator, build_gan
 
 HASH_PREFIX = "hash."  # the re-initialised hash layer (the reference's "hash")
 
@@ -49,6 +56,17 @@ def parameter_groups(module: nn.Module, cfg) -> List[dict]:
             {"params": head, "lr": cfg.lr * cfg.hash_lr_multiplier}]
 
 
+def _linear_decay(opt: torch.optim.Optimizer, horizon: int
+                  ) -> torch.optim.lr_scheduler.LambdaLR:
+    """``optax.linear_schedule(lr, 0, horizon)``: the factor 1 - c / horizon
+    at update count c, from 1 at the first update down to 0."""
+
+    def factor(count: int) -> float:
+        return max(0.0, 1.0 - count / horizon) if horizon > 0 else 1.0
+
+    return torch.optim.lr_scheduler.LambdaLR(opt, factor)
+
+
 def make_encoder_tx(module: nn.Module, cfg
                     ) -> Tuple[torch.optim.Adam,
                                Optional[torch.optim.lr_scheduler.LambdaLR]]:
@@ -59,12 +77,20 @@ def make_encoder_tx(module: nn.Module, cfg
                            betas=(0.9, 0.999), eps=1e-8)
     if not cfg.decay_lr:
         return opt, None
-    iters = cfg.iters
+    return opt, _linear_decay(opt, cfg.iters)
 
-    def factor(count: int) -> float:
-        return max(0.0, 1.0 - count / iters) if iters > 0 else 1.0
 
-    return opt, torch.optim.lr_scheduler.LambdaLR(opt, factor)
+def make_gan_tx(module: nn.Module, cfg, updates_per_iter: int = 1
+                ) -> Tuple[torch.optim.Adam,
+                           Optional[torch.optim.lr_scheduler.LambdaLR]]:
+    """(Adam with ``cfg.beta1`` / ``cfg.beta2``, linear decay over
+    ``cfg.iters * updates_per_iter`` updates or None) for a G or D under a
+    ``GanConfig``."""
+    opt = torch.optim.Adam(module.parameters(), lr=cfg.lr,
+                           betas=(cfg.beta1, cfg.beta2), eps=1e-8)
+    if not cfg.decay_lr:
+        return opt, None
+    return opt, _linear_decay(opt, cfg.iters * updates_per_iter)
 
 
 def create_encoder_state(cfg, device: torch.device | str) -> EncoderState:
@@ -84,3 +110,42 @@ def create_encoder_state(cfg, device: torch.device | str) -> EncoderState:
                                                  cfg.encoder.pretrained_npy))
     opt, sched = make_encoder_tx(module, cfg.encoder)
     return EncoderState(module=module, optimizer=opt, scheduler=sched)
+
+
+@dataclasses.dataclass
+class GanState:
+    """G (its batch-norm running averages are its buffers, the reference's
+    ``g_stats``), D, their optimisers and schedules, the number of cycles
+    taken, and, when ``ema_decay > 0``, the EMA of G's parameters
+    (``g_ema``, by parameter name) and of its running averages
+    (``g_ema_stats``, by buffer name)."""
+
+    generator: Generator
+    discriminator: Discriminator
+    g_opt: torch.optim.Optimizer
+    g_sched: Optional[torch.optim.lr_scheduler.LambdaLR]
+    d_opt: torch.optim.Optimizer
+    d_sched: Optional[torch.optim.lr_scheduler.LambdaLR]
+    step: int = 0
+    g_ema: Optional[Dict[str, torch.Tensor]] = None
+    g_ema_stats: Optional[Dict[str, torch.Tensor]] = None
+
+
+_GAN_INIT_TAG = 0x6A17  # G and D draw their init apart from the encoder
+
+
+def create_gan_state(cfg, device: torch.device | str) -> GanState:
+    """G and D of ``cfg`` with seeded initial weights (drawn on the CPU
+    from (``cfg.train.seed``, a tag of their own)) on ``device``, fresh
+    optimisers, and distinct EMA copies when ``cfg.gan.ema_decay > 0``."""
+    seed = int(np.random.SeedSequence([cfg.train.seed, _GAN_INIT_TAG])
+               .generate_state(1, np.uint64)[0]) & ((1 << 63) - 1)
+    g, d = build_gan(cfg, device=device, seed=seed)
+    g_opt, g_sched = make_gan_tx(g, cfg.gan)
+    d_opt, d_sched = make_gan_tx(d, cfg.gan, updates_per_iter=cfg.gan.n_critic)
+    ema = ema_stats = None
+    if cfg.gan.ema_decay > 0:
+        ema = {k: p.detach().clone() for k, p in g.named_parameters()}
+        ema_stats = {k: b.clone() for k, b in g.named_buffers()}
+    return GanState(g, d, g_opt, g_sched, d_opt, d_sched, g_ema=ema,
+                    g_ema_stats=ema_stats)

@@ -1,8 +1,9 @@
 """Port of the AlexNet and ResNet hash encoders, the LRN layer, the weight
 converter and the bvlc loader against the Flax reference on the CPU: the
 same parameters (carried over by flax_to_torch) and the same images give
-the same codes. Also: training a GAN preset (config2) raises naming the GAN
-slice, and AlexNet's train step, dropout included, is step-pure.
+the same codes. Also: a GAN preset's whole pipeline (config2) trains its
+GAN first and then its AlexNet encoder, and AlexNet's train step, dropout
+included, is step-pure.
 
 Tolerances, as in tests/test_torch_encoder.py: in float32 atol 1e-4 on the
 tanh codes (XLA:CPU and PyTorch's CPU kernels sum the convolutions in
@@ -267,17 +268,23 @@ def test_build_encoder_and_dropout():
 
 
 def test_training_a_gan_preset_raises_naming_the_gan_slice(tmp_path):
-    """A GAN preset's whole pipeline starts with stage I, which is not
-    ported: it raises naming the GAN (its stage II alone trains on real
-    images, tests/test_torch_train.py)."""
+    """A GAN preset's whole pipeline starts with stage I, ported since the
+    GAN slice: no raise; ``run()`` trains the GAN (cut to dim 8, one cycle
+    of batch 4), then the AlexNet encoder on real and generated images,
+    then evaluates."""
     from hashgan_tpu_torch.train.loop import Experiment
 
     cfg = get_config("config2")
-    cfg = dataclasses.replace(cfg, data=dataclasses.replace(
-        cfg.data, n_train=16, n_query=8, n_database=16))
+    cfg = dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, n_train=16, n_query=8,
+                                      n_database=16),
+        gan=dataclasses.replace(cfg.gan, dim=8, z_dim=8, n_critic=1, iters=1),
+        encoder=dataclasses.replace(cfg.encoder, iters=1),
+        train=dataclasses.replace(cfg.train, batch_size=4))
     exp = Experiment(cfg, workdir=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"stage 1 \(the GAN\)"):
-        exp.run()
+    metrics = exp.run()
+    assert exp.gan_state.step == 1 and exp.encoder_state.step == 1
+    assert set(metrics) == {"map_at_5000", "precision_at_h2"}
 
 
 def test_alexnet_train_step_is_step_pure():

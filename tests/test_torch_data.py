@@ -32,7 +32,10 @@ def _fields(cfg, prefix=""):
                                   "cifar10_32bit_encoder_only",
                                   "synthetic_1m_128bit_scan", "config2",
                                   "config3", "config4", "cifar10_48bit_gan",
-                                  "nuswide_64bit_gan", "imagenet100_64bit"])
+                                  "nuswide_64bit_gan", "imagenet100_64bit",
+                                  "config2_cal", "config3_cal",
+                                  "cifar10_48bit_gan_cal",
+                                  "nuswide_64bit_gan_cal"])
 def test_presets_carry_the_reference_values(name):
     ref = get_config_jax(name)
     got = dict(_fields(get_config(name)))
@@ -49,10 +52,12 @@ def test_presets_carry_the_reference_values(name):
 
 
 def test_unported_presets_raise():
-    # config2-4 are ported (their training raises until the GAN is); the
-    # calibrated GAN presets are not
+    # every preset of the reference is ported, the calibrated GAN presets
+    # last; a name that no preset has raises, listing the options
+    assert get_config("config2_cal").name == "cifar10_48bit_gan_cal"
+    assert get_config("config3_cal").name == "nuswide_64bit_gan_cal"
     with pytest.raises(KeyError, match="config2_cal"):
-        get_config("config2_cal")
+        get_config("config9")
 
 
 @pytest.mark.parametrize("n_classes,size", [(10, 32), (100, 32), (7, 20)])

@@ -345,11 +345,13 @@ RANDOM_INIT_WARNING = "training AlexNet from random init"
 
 
 def _config2_yaml(tmp_path, encoder=None, **train):
-    """config2 (AlexNet 48 bits bf16, use_gan) with its splits cut small."""
+    """config2 (AlexNet 48 bits bf16, use_gan) with its splits cut small and
+    its GAN cut to dim 8, z 8, two critic steps a cycle and two cycles."""
     import yaml
 
     raw = {"preset": "config2",
            "data": {"n_train": 32, "n_query": 8, "n_database": 40},
+           "gan": {"dim": 8, "z_dim": 8, "n_critic": 2, "iters": 2},
            "encoder": encoder or {},
            "train": {"batch_size": 8, "log_every": 1, "eval_every": 10**6,
                      "checkpoint_every": 10**6,
@@ -383,15 +385,22 @@ def test_stage2_with_use_gan_trains_on_real_images(tmp_path):
     assert sa == sb == 2
     for name in pa:
         assert torch.equal(pa[name], pb[name]), name
-    # the whole pipeline (and the CLI's default --stage all) would train
-    # the GAN first, as the reference does: refused, not skipped
-    with pytest.raises(NotImplementedError, match="stage 1"):
-        gan.run()
+    # the whole pipeline trains the GAN first, as the reference does, and
+    # then the encoder on real and generated images, without the warning
+    short = dataclasses.replace(
+        cfg, encoder=dataclasses.replace(cfg.encoder, iters=1))
+    whole = Experiment(short, workdir=str(tmp_path / "run"), device="cpu")
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        m = whole.run()
+    assert not any(GAN_WARNING in str(w.message) for w in rec)
+    assert whole.gan_state.step == 2 and whole.encoder_state.step == 1
+    assert set(m) == {"map_at_5000", "precision_at_h2"}
 
 
 def test_stage2_without_gan_samples_does_not_warn(tmp_path, monkeypatch):
     """The yaml turns GAN samples off: stage II trains without the warning,
-    through the CLI too; --stage all would need stage 1 and is refused."""
+    through the CLI too, and --stage all (stage 1, then stage 2) as well."""
     path = _config2_yaml(tmp_path, use_gan_samples=False)
     cfg = load_yaml(path)
     assert cfg.use_gan and not cfg.train.use_gan_samples
@@ -403,8 +412,65 @@ def test_stage2_without_gan_samples_does_not_warn(tmp_path, monkeypatch):
         warnings.simplefilter("always")
         cli.main(["train", "--config", path, "--stage", "2", "--iters", "1"])
     assert not any(GAN_WARNING in str(w.message) for w in rec)
-    with pytest.raises(NotImplementedError, match="stage 1"):
-        cli.main(["train", "--config", path])
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        cli.main(["train", "--config", path, "--iters", "1"])
+    assert not any(GAN_WARNING in str(w.message) for w in rec)
+
+
+def _last_logged_step(workdir):
+    with open(os.path.join(workdir, "metrics.jsonl")) as f:
+        return [r for r in map(json.loads, f) if "hash_loss" in r][-1]["step"]
+
+
+@pytest.mark.parametrize("samples", [True, False])
+def test_stage2_restores_the_checkpoint_as_the_reference(tmp_path,
+                                                         monkeypatch,
+                                                         samples):
+    """Stage II of a use_gan config restores the workdir's checkpoint where
+    the reference does, on the port and on the reference side by side:
+
+    - Experiment path: 2 steps and a save, then a new Experiment trains 1
+      step and then 3 more. With GAN samples asked for and a GAN that never
+      stepped, every train_encoder call restores the latest checkpoint (so
+      steps held only in memory roll back): steps 3 and 5. Without them,
+      nothing restores: 1 and 4;
+    - CLI path: ``train --stage 2`` (no --resume) restores on any use_gan
+      config: --iters 1 ends at step 3, a second call with --iters 3 at 5."""
+    from hashgan_tpu import cli as cli_jax
+    from hashgan_tpu.configs import load_yaml as load_yaml_jax
+    from hashgan_tpu.train.loop import Experiment as ExperimentJax
+
+    path = _config2_yaml(
+        tmp_path, encoder={"arch": "small_cnn", "bits": 32,
+                           "compute_dtype": "float32"},
+        use_gan_samples=samples)
+    monkeypatch.setattr(cli, "_device", lambda gpu: torch.device("cpu"))
+    sides = {"port": (load_yaml, Experiment, cli.main, {"device": "cpu"}),
+             "reference": (load_yaml_jax, ExperimentJax, cli_jax.main,
+                           {"use_mesh": False})}
+    ends = {}
+    for side, (load, exp_cls, main, kw) in sides.items():
+        cfg = load(path)
+        got = []
+        for route in ("experiment", "cli"):
+            wd = str(tmp_path / side / route)
+            first = exp_cls(cfg, workdir=wd, **kw)
+            first.train_encoder(2, eval_during=False)
+            first.save_checkpoint()
+            if route == "experiment":
+                exp = exp_cls(cfg, workdir=wd, **kw)
+                for n in (1, 3):
+                    exp.train_encoder(n, eval_during=False)
+                    got.append(int(np.asarray(exp.encoder_state.step)))
+            else:
+                for n in (1, 3):
+                    main(["train", "--config", path, "--workdir", wd,
+                          "--stage", "2", "--iters", str(n)])
+                    got.append(_last_logged_step(wd))
+        ends[side] = got
+    assert ends["port"] == ends["reference"] == (
+        [3, 5, 3, 5] if samples else [1, 4, 3, 5])
 
 
 def _fake_bvlc_npy(path):
@@ -530,8 +596,22 @@ def test_cli_train_eval_encode_build_index_query(tiny_yaml, tmp_path,
     capsys.readouterr()
     exp = Experiment(load_yaml(tiny_yaml), device="cpu")
     assert exp.restore_checkpoint() and exp.encoder_state.step == 15
-    with pytest.raises(NotImplementedError, match="stage 1"):
-        cli.main(["train", "--config", tiny_yaml, "--stage", "1"])
+    # stage 1 of a config without a GAN does nothing, as in the reference
+    wd = load_yaml(tiny_yaml).train.workdir
+    before = _listing(wd)
+    cli.main(["train", "--config", tiny_yaml, "--stage", "1"])
+    assert _listing(wd) == before
+    assert capsys.readouterr().out == ""
+
+
+def _listing(root):
+    """Every file under ``root`` with its size and modification time."""
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            st = os.stat(os.path.join(d, f))
+            out[os.path.join(d, f)] = (st.st_size, st.st_mtime_ns)
+    return out
 
 
 def test_query_engine_from_artifacts_serves_images(tiny_yaml, tmp_path,
