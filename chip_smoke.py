@@ -25,8 +25,12 @@ config2's PC-WGAN at full width (dim 128, z 128, batch 64, n_critic 5,
 bf16): one cycle on the card against the CPU, timed cycles, 200 cycles
 through ``Experiment.train_gan`` with a bit-exact resume check, and
 ``train --stage 2`` co-training the AlexNet encoder on real and generated
-images, evaluated. Every answer is checked against plain witnesses and
-numpy oracles. Imports nothing of
+images, evaluated, then ``configs/cifar10_step2.yaml`` (AlexNet 48 bits on
+the 256 -> 227 input protocol) with config2's GAN trained by ``train
+--stage all`` on a 60,000-image CIFAR-10 binary archive written from a
+seed, evaluated at MAP@5000 and served, with kernels 1 and 4 at its shapes
+and one 227 step on the card against the CPU. Every answer is checked
+against plain witnesses and numpy oracles. Imports nothing of
 JAX and nothing of the JAX package ``hashgan_tpu``: the presets and the
 synthetic images come from the port.
 
@@ -166,6 +170,10 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_PER_S = 67e12
 BF16_PER_S = 989e12
 CONFIG_ENCODERS = ("config2", "config4")  # AlexNet 48 bits, ResNet 64 bits
+# phase 10: images a class in the CIFAR-10 archive, GAN cycles and
+# stage-II steps of train --stage all, stage-II steps timed after them
+P10_PER_CLASS = 6000
+P10_GAN_CYCLES, P10_STEPS, P10_TIMED_STEPS = 20, 100, 20
 
 
 def check(cond: bool, what: str) -> None:
@@ -269,6 +277,28 @@ def plain_exact_topk(torch, pq, canon, k: int):
     from hashgan_tpu_torch.ops.hamming import exact_topk_torch
 
     return tuple(t.cpu().numpy() for t in exact_topk_torch(pq, canon, k))
+
+
+def int_mm_ms(torch, pq, canon, n_bits: int, distances):
+    """Device ms of kernel 4's library yardstick, ``torch._int_mm`` on the
+    +-1 int8 codes (its int32 output is what the kernel writes), once its
+    distances are checked against ``distances``; None where cuBLAS takes
+    neither layout of the gallery operand."""
+    from hashgan_tpu_torch.ops.mxu_scan import unpack_to_pm8
+
+    a8, g8 = unpack_to_pm8(pq), unpack_to_pm8(canon)
+    for b8 in (g8.t().contiguous(), g8.t()):  # row- or column-major
+        try:
+            check(torch.equal((n_bits - torch._int_mm(a8, b8)) // 2,
+                              distances),
+                  f"torch._int_mm distances != kernel at "
+                  f"{pq.shape[0]} x {canon.shape[0]}")
+        except RuntimeError as e:
+            print(f"torch._int_mm does not take the +-1 codes with strides "
+                  f"{b8.stride()}: {str(e)[:200]}", flush=True)
+            continue
+        return device_ms(torch, lambda: torch._int_mm(a8, b8), 20)
+    return None
 
 
 def equal_lists(torch, got, want) -> bool:
@@ -1300,6 +1330,383 @@ def measurement_path(torch, dev) -> dict:
     return variant_counts
 
 
+def write_cifar_archive(root: str, seed: int) -> str:
+    """A CIFAR-10 binary-format archive (``cifar-10-batches-bin``: five
+    data batches and a test batch of 10,000 rows, a label byte and 3,072
+    planar R, G, B bytes each) of P10_PER_CLASS images a class from the
+    port's synthetic generator (config2's templates, one seed a class),
+    shuffled by ``seed``. Returns its directory."""
+    from hashgan_tpu_torch.data.synthetic import make_synthetic
+
+    _, templates = make_synthetic(1, 10, seed=seed)
+    images = np.concatenate([make_synthetic(
+        P10_PER_CLASS, 1, templates=templates[c:c + 1],
+        seed=seed + 1 + c)[0].images for c in range(10)])
+    labels = np.repeat(np.arange(10, dtype=np.uint8), P10_PER_CLASS)
+    order = np.random.default_rng(seed).permutation(len(labels))
+    rows = np.concatenate([labels[order, None], images[order].transpose(
+        0, 3, 1, 2).reshape(len(labels), -1)], axis=1)
+    d = os.path.join(root, "cifar-10-batches-bin")
+    os.makedirs(d)
+    names = [f"data_batch_{i}.bin" for i in range(1, 6)] + ["test_batch.bin"]
+    for name, part in zip(names, np.split(rows, len(names))):
+        part.tofile(os.path.join(d, name))
+    return d
+
+
+def step2_grads(torch, c, device, images, labels, draws, g_state) -> tuple:
+    """One train step of ``c`` on ``device`` from the seeded encoder
+    (dropout off) and G at ``g_state``, with the given batch and draws:
+    (metrics, {parameter name: gradient on the CPU})."""
+    from hashgan_tpu_torch.train.gan_step import sample_images
+    from hashgan_tpu_torch.train.hash_step import make_encoder_train_step
+    from hashgan_tpu_torch.train.state import (
+        create_encoder_state,
+        create_gan_state,
+    )
+
+    st = create_encoder_state(c, device)
+    st.module.dropout_rate = 0.0
+    gs = create_gan_state(c, device)
+    gs.generator.load_state_dict(g_state)
+    m = make_encoder_train_step(c)(
+        st, torch.from_numpy(images).to(device),
+        torch.from_numpy(labels).to(device),
+        sample=lambda z, y: sample_images(gs, z, y), **draws)
+    return ({k: v.item() for k, v in m.items()},
+            {n: p.grad.float().cpu() for n, p in st.module.named_parameters()})
+
+
+def step2_card_vs_cpu(torch, cfg, splits, dev) -> str:
+    """Phase 10, part 6: one 227 train step of cifar10_step2 at float32
+    (TF32 off, dropout off: its masks come from per-device generators) on
+    the card and on the CPU, from one set of weights (the encoder's and
+    G's), one batch of 64 real images and the same flip, crop (pad 2),
+    geometry and z draws: the loss metrics within rtol 1e-4 (atol 1e-5),
+    the encoder's gradient within 1e-3 relative L2; and the evaluation
+    geometry of 256 images within 1e-3 absolute.
+
+    The gradient's gate is phase 9's for the GAN, not 1e-4: at 227 the
+    convolutions' weight gradients sum up to 290,400 terms with heavy
+    cancellation, and cuDNN sums them in another order than the CPU
+    (measured on an H100: 1.05e-4 over all parameters, conv1's weight
+    7.2e-4, against 3.6e-7 between two CPU thread counts and 0 between two
+    card runs); a wrong draw or geometry moves the loss itself. Two wrong
+    steps on the card are held against the same CPU gradient as controls,
+    and each must land above the gate: the geometry offsets moved by one
+    pixel, and the step in bf16."""
+    from hashgan_tpu_torch.data.pipeline import BatchIterator
+    from hashgan_tpu_torch.data.preprocess import (
+        alexnet_eval_geometry,
+        to_encoder_input,
+    )
+    from hashgan_tpu_torch.train.state import create_gan_state
+
+    t0 = time.perf_counter()
+    c = dataclasses.replace(
+        cfg, encoder=dataclasses.replace(cfg.encoder,
+                                         compute_dtype="float32"),
+        gan=dataclasses.replace(cfg.gan, compute_dtype="float32"),
+        train=dataclasses.replace(cfg.train, crop_pad=2))
+    b, enc = c.train.batch_size, c.encoder
+    n_fake = max(1, int(b * c.train.fake_ratio))
+    images, labels = BatchIterator(splits["train"], b, seed=5).batch(0)
+    gen = torch.Generator().manual_seed(12)
+    draws = dict(
+        flip=torch.rand(b, generator=gen) < 0.5,
+        crop=torch.randint(0, 5, (b,), generator=gen),
+        geometry=torch.randint(0, enc.resize_base - enc.input_resize + 1,
+                               (b + n_fake,), generator=gen),
+        z=torch.randn(n_fake, c.gan.z_dim, generator=gen))
+    g_state = create_gan_state(c, "cpu").generator.state_dict()
+    want, want_g = step2_grads(torch, c, torch.device("cpu"), images, labels,
+                               draws, g_state)
+    got, got_g = step2_grads(torch, c, dev, images, labels, draws, g_state)
+    worst = 0.0
+    for k, v in want.items():
+        check(abs(got[k] - v) <= 1e-5 + 1e-4 * abs(v),
+              f"card step metric {k}: {got[k]} vs CPU {v}")
+        worst = max(worst, abs(got[k] - v))
+    per = sorted(((((got_g[n] - w).norm() / w.norm()).item(), n)
+                  for n, w in want_g.items()), reverse=True)
+    want_flat = torch.cat([want_g[n].ravel() for n in want_g])
+
+    def rel_l2(grads):
+        flat = torch.cat([grads[n].ravel() for n in want_g])
+        return ((flat - want_flat).norm() / want_flat.norm()).item()
+
+    rel = rel_l2(got_g)
+    check(rel <= 1e-3, f"card gradients: relative L2 {rel} > 1e-3; by "
+          f"tensor {per[:5]}")
+    high = enc.resize_base - enc.input_resize + 1
+    shifted = dict(draws, geometry=(draws["geometry"] + 1) % high)
+    bf16 = dataclasses.replace(
+        c, encoder=dataclasses.replace(c.encoder, compute_dtype="bfloat16"),
+        gan=dataclasses.replace(c.gan, compute_dtype="bfloat16"))
+    controls = {
+        "geometry + 1": rel_l2(step2_grads(torch, c, dev, images, labels,
+                                           shifted, g_state)[1]),
+        "bf16": rel_l2(step2_grads(torch, bf16, dev, images, labels, draws,
+                                   g_state)[1])}
+    check(min(controls.values()) > 1e-3,
+          f"a wrong step passes the gradient gate of 1e-3: {controls}")
+    raw = torch.from_numpy(splits["query"].images[:256])
+    geo = [alexnet_eval_geometry(to_encoder_input(raw.to(d)),
+                                 enc.input_resize, enc.resize_base).cpu()
+           for d in (torch.device("cpu"), dev)]
+    geo_err = (geo[0] - geo[1]).abs().max().item()
+    check(geo_err <= 1e-3, f"card eval geometry: max |diff| {geo_err}")
+    return (f"card vs CPU at float32 ({time.perf_counter() - t0:.1f} s; "
+            f"{b} real + {n_fake} generated images at 227): step metrics "
+            f"max |diff| {worst:.3g}, gradient relative L2 {rel:.3g} (worst "
+            f"tensors {', '.join(f'{n} {r:.3g}' for r, n in per[:3])}; "
+            "controls above the gate of 1e-3: "
+            + ", ".join(f"{k} {v:.3g}" for k, v in controls.items()) + "), "
+            f"eval geometry of 256 images max |diff| {geo_err:.3g}")
+
+
+def cifar10_step2(torch, dev, smi: str) -> dict:
+    """Phase 10: ``configs/cifar10_step2.yaml``'s encoder (AlexNet 48 bits,
+    256 -> 227, bf16) with config2's GAN (dim 128, z 128, n_critic 5) at
+    full width, on a 60,000-image CIFAR-10 binary archive written here
+    (1,000 / 5,000 / 54,000 splits), cut only in iterations: ``train
+    --stage all`` (P10_GAN_CYCLES cycles, P10_STEPS steps of 64 real + 32
+    generated images) and its ``evaluate()`` (MAP@5000) against the numpy
+    oracle, with K1 and K4 launched; one ``QueryEngine`` batch of 256 raw
+    32x32 images over the 54,000-item gallery against the plain witness;
+    K1 at (55,000, 48) and K4 at 1,000 x 54,000 (W = 2) against their plain
+    versions, timed; the step, the encode and evaluate() timed; a 227 step
+    on the card against the CPU. Returns K1's and K4's numbers at these
+    shapes, with the launches of the training run."""
+    import yaml
+
+    from hashgan_tpu_torch import cli
+    from hashgan_tpu_torch.configs import load_yaml
+    from hashgan_tpu_torch.data.preprocess import (
+        alexnet_eval_geometry,
+        to_encoder_input,
+    )
+    from hashgan_tpu_torch.eval import oracle
+    from hashgan_tpu_torch.index import QueryEngine, build_gallery
+    from hashgan_tpu_torch.ops import _build
+    from hashgan_tpu_torch.ops.hamming import (
+        hamming_distance_t,
+        hamming_distance_torch,
+    )
+    from hashgan_tpu_torch.ops.pack import pack_codes, pack_codes_torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="hashgan_smoke_cifar_")
+    try:
+        t0 = time.perf_counter()
+        archive = write_cifar_archive(os.path.join(root, "data"), seed=10)
+        archive_s = time.perf_counter() - t0
+        archive_mb = sum(os.path.getsize(os.path.join(archive, f))
+                         for f in os.listdir(archive)) / 1e6
+        with open(os.path.join(REPO, "configs", "cifar10_step2.yaml")) as f:
+            raw = yaml.safe_load(f)
+        raw["encoder"]["iters"] = P10_STEPS
+        raw["gan"] = {"iters": P10_GAN_CYCLES}
+        raw["data"] = {"cifar10_dir": archive}
+        raw["train"]["workdir"] = os.path.join(root, "cifar10_step2")
+        path = os.path.join(root, "cifar10_step2.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(raw, f)
+        cfg = load_yaml(path)
+        enc = cfg.encoder
+        got = (cfg.name, enc.arch, enc.bits, enc.input_resize,
+               enc.resize_base, enc.compute_dtype, cfg.gan.dim, cfg.eval.R)
+        check(got == ("cifar10_48bit_gan", "alexnet", 48, 227, 256,
+                      "bfloat16", 128, 5000), f"cifar10_step2 config {got}")
+
+        # train --stage all through the CLI; the hooks count each step's
+        # real and generated images and mark the stage boundaries
+        made, seen, marks = [], [], {}
+        experiment = cli._experiment
+
+        def watched(args):
+            e = experiment(args)
+            marks["made"] = time.perf_counter()
+            cycle, sample, step = e._gan_cycle, e._sample, e._enc_step
+
+            def counted_cycle(*a, **kw):
+                out = cycle(*a, **kw)
+                marks["cycled"] = time.perf_counter()
+                return out
+
+            def counted_sample(z, labels):
+                seen.append(("fake", z.shape[0]))
+                return sample(z, labels)
+
+            def counted_step(state, images, labels, **kw):
+                seen.append(("real", images.shape[0]))
+                out = step(state, images, labels, **kw)
+                marks["stepped"] = time.perf_counter()
+                return out
+
+            e._gan_cycle, e._sample = counted_cycle, counted_sample
+            e._enc_step = counted_step
+            made.append(e)
+            return e
+
+        cli._experiment = watched
+        err, out = io.StringIO(), io.StringIO()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stderr(err), \
+                    contextlib.redirect_stdout(out):
+                cli.main(["train", "--config", path, "--stage", "all"])
+        finally:
+            cli._experiment = experiment
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        train_s = t1 - t0
+        counts = _build.launch_counts()
+        check(all(counts[k] > 0 for k in STAGE2_KERNELS),
+              f"cifar10_step2's evaluate() did not launch {STAGE2_KERNELS}: "
+              f"{counts}")
+        exp = made[0]
+        sizes = {k: len(v) for k, v in exp.splits.items()}
+        check(sizes == {"train": 5000, "query": 1000, "database": 54000},
+              f"CIFAR-10 splits {sizes}")
+        check(exp.encoder.fc6.in_features == 9216,
+              f"fc6 has {exp.encoder.fc6.in_features} inputs")
+        check(exp.gan_state.step == P10_GAN_CYCLES
+              and exp.encoder_state.step == P10_STEPS,
+              f"steps {exp.gan_state.step}, {exp.encoder_state.step}")
+        check(seen.count(("real", 64)) == P10_STEPS
+              and seen.count(("fake", 32)) == P10_STEPS,
+              f"stage-II batches {collections.Counter(seen)}")
+        m = json.loads(out.getvalue().strip().splitlines()[-1])
+        setup_s, gan_s = marks["made"] - t0, marks["cycled"] - marks["made"]
+        steps_s = marks["stepped"] - marks["cycled"]
+        eval_s = t1 - marks["stepped"]
+
+        # evaluate() against the numpy oracle on the same codes (encoded
+        # again: the encoder is deterministic), the encode rate timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        db_codes = exp.encode_split("database")
+        torch.cuda.synchronize()
+        encode_s = time.perf_counter() - t0
+        q_codes = exp.encode_split("query")
+        pq, pg = pack_codes(q_codes), pack_codes(db_codes)
+        R, radius = cfg.eval.R, cfg.eval.precision_radius
+        d = oracle_distances(pq.cpu().numpy().view(np.uint32),
+                             pg.cpu().numpy().view(np.uint32))
+        ql, dl = exp.splits["query"].labels, exp.splits["database"].labels
+        o_map = oracle.mean_average_precision_np(d, ql, dl, R=R)
+        o_p = oracle.precision_at_radius_np(d, ql, dl, radius=radius)
+        map_key, p_key = f"map_at_{R}", f"precision_at_h{radius}"
+        check(abs(m[map_key] - o_map) <= 1e-6 and abs(m[p_key] - o_p) <= 1e-6,
+              f"evaluate() {m} != numpy oracle ({o_map}, {o_p})")
+
+        # one serving batch of raw 32x32 images over the 54,000-item gallery
+        gallery = build_gallery(db_codes, dl, enc.bits)
+        engine = QueryEngine(exp.encoder, gallery, cfg=cfg)
+        raw_q = exp.splits["query"].images[:BATCH]
+        res = engine.query_images(raw_q, k=cfg.index.topk)
+        exp.encoder.eval()
+        with torch.inference_mode():
+            w_codes = exp.encoder(alexnet_eval_geometry(
+                to_encoder_input(torch.from_numpy(raw_q).to(dev)),
+                enc.input_resize, enc.resize_base))
+        check(torch.equal(w_codes, engine.encode(raw_q)),
+              "QueryEngine's codes != the geometry and encoder by hand")
+        wd, wi = plain_exact_topk(torch, pack_codes_torch(w_codes),
+                                  gallery.packed_canonical[:gallery.n],
+                                  cfg.index.topk)
+        check((res.indices == wi).all() and (res.distances == wd).all(),
+              "QueryEngine top-100 != plain witness")
+
+        # K1 and K4 at this slice's shapes, against their plain versions
+        codes = torch.cat([q_codes, db_codes])
+        got, want = pack_codes(codes), pack_codes_torch(codes)
+        check(torch.equal(got, want), f"pack != plain at {tuple(codes.shape)}")
+        k1 = {"shape": list(codes.shape),
+              "max_abs_err": int((got.long() - want.long()).abs().max()),
+              "ms": device_ms(torch, lambda: pack_codes(codes), 50),
+              "plain_ms": device_ms(torch, lambda: pack_codes_torch(codes),
+                                    5),
+              **bound(codes.numel() * 4 + got.numel() * 4, codes.numel(),
+                      FP32_PER_S),
+              "library_ms": None, "launches": counts["pack"]}
+        pg_t = pg.t().contiguous()
+        got = hamming_distance_t(pq, pg_t)
+        want = hamming_distance_torch(pq, pg)
+        check(torch.equal(got, want),
+              f"hamming != plain at {pq.shape[0]} x {pg.shape[0]}")
+        k4 = {"shape": [pq.shape[0], pg.shape[0], pq.shape[1]],
+              "max_abs_err": int((got - want).abs().max()),
+              "ms": device_ms(torch, lambda: hamming_distance_t(pq, pg_t),
+                              50),
+              "plain_ms": device_ms(
+                  torch, lambda: hamming_distance_torch(pq, pg), 5),
+              **bound(4 * (pq.numel() + pg.numel() + got.numel()),
+                      distance_ops(got.numel(), 32 * pq.shape[1]),
+                      INT8_PER_S),
+              "library_ms": int_mm_ms(torch, pq, pg, 32 * pq.shape[1], got),
+              "launches": counts["hamming"]}
+        del got, want, codes, pg_t, d
+
+        # where an encode batch of 256 images spends its device time
+        enc_ms, enc_top = kernel_breakdown(torch, lambda: engine.encode(raw_q))
+
+        # the stage-II step: host clock, CUDA events, profiler busy time
+        n_t = P10_TIMED_STEPS
+        exp.train_encoder(2, eval_during=False)
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        start.record()
+        exp.train_encoder(n_t, eval_during=False)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / n_t
+        dev_ms = start.elapsed_time(end) / n_t
+        busy, top = kernel_breakdown(
+            torch, lambda: exp.train_encoder(3, eval_during=False))
+        busy /= 3
+        splits = exp.splits
+        del exp, made, engine, gallery, db_codes, q_codes, w_codes
+        gc.collect()
+        torch.cuda.empty_cache()
+        vs_cpu = step2_card_vs_cpu(torch, cfg, splits, dev)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    wall_s = time.perf_counter() - t_phase
+    print(f"phase 10 cifar10_step2 on a CIFAR-10 archive ({smi}; AlexNet "
+          f"{enc.bits}-bit {enc.compute_dtype} at {enc.resize_base} -> "
+          f"{enc.input_resize}, PC-WGAN dim {cfg.gan.dim}, the "
+          f"{archive_mb:.1f} MB binary archive written in {archive_s:.2f} s, "
+          f"splits {sizes}): train --stage all in {train_s:.2f} s "
+          f"(set-up {setup_s:.2f} s, {P10_GAN_CYCLES} GAN cycles "
+          f"{gan_s:.2f} s, {P10_STEPS} steps of 64 real + 32 generated "
+          f"images {steps_s:.2f} s, evaluate {eval_s:.2f} s); {map_key} "
+          f"{m[map_key]:.6f}, {p_key} {m[p_key]:.6f} == numpy oracle within "
+          f"1e-6; launches {counts}; encode {len(splits['database'])} "
+          f"images at 227 in {encode_s:.3f} s "
+          f"({len(splits['database']) / encode_s:.0f} images/s; a "
+          f"{BATCH}-image batch {enc_ms:.3f} ms of kernels, top 5: "
+          + "; ".join(f"{k} {v:.4f}" for k, v in enc_top)
+          + "); stage-II "
+          f"step {host_ms:.3f} host ms, {dev_ms:.3f} device ms (CUDA "
+          f"events, {n_t} steps), {busy:.3f} ms of kernels, device idle "
+          f"{max(0.0, 1 - busy / dev_ms):.3f}; top 5: "
+          + "; ".join(f"{k} {v / 3:.4f}" for k, v in top)
+          + f"; QueryEngine 256 raw images top-{cfg.index.topk} == plain "
+          f"witness; K1 at {k1['shape']} {k1['ms']:.4f} ms (plain "
+          f"{k1['plain_ms']:.4f}, bound {k1['bound_ms']:.4f}), K4 at "
+          f"{k4['shape']} {k4['ms']:.4f} ms (plain {k4['plain_ms']:.4f}, "
+          f"torch._int_mm {k4['library_ms']}, bound {k4['bound_ms']:.4f}), "
+          "both bit-identical to plain; "
+          f"{vs_cpu}; phase 10 wall {wall_s:.1f} s", flush=True)
+    return {"pack": k1, "hamming": k4}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -1368,7 +1775,6 @@ def main() -> None:
         mxu_topk,
         pm8_column_block,
         unpack_to_pm1,
-        unpack_to_pm8,
     )
     from hashgan_tpu_torch.ops.pack import pack_codes, pack_codes_torch
     from hashgan_tpu_torch.ops.scan_variants import fullkey_scan_bf16
@@ -1602,25 +2008,13 @@ def main() -> None:
         check(torch.equal(((n_bits - lib().float()) / 2).int(), got),
               f"+-1 matmul distances != kernel at {nq} x {ng}")
         bf16_ms = device_ms(torch, lib, 20)
-        a8, g8 = unpack_to_pm8(h_q), unpack_to_pm8(h_g)
-        timing["library_ms"] = None
-        for b8 in (g8.t().contiguous(), g8.t()):  # row- or column-major
-            try:
-                check(torch.equal((n_bits - torch._int_mm(a8, b8)) // 2, got),
-                      f"torch._int_mm distances != kernel at {nq} x {ng}")
-            except RuntimeError as e:
-                print(f"torch._int_mm does not take the +-1 codes with "
-                      f"strides {b8.stride()}: {str(e)[:200]}", flush=True)
-                continue
-            timing["library_ms"] = device_ms(
-                torch, lambda: torch._int_mm(a8, b8), 20)
-            break
+        timing["library_ms"] = int_mm_ms(torch, h_q, h_g, n_bits, got)
         # the write stream's practical ceiling: a fill of the same output
         fill_ms = device_ms(torch, lambda: got.fill_(1), 50)
         if not extra:
             stats["hamming"] = timing
         extra[f"{nq}x{ng}"] = {**timing, "bf16_ms": bf16_ms, "fill_ms": fill_ms}
-        del h_q, h_g, h_gt, got, want, lib, a8, g8, b8
+        del h_q, h_g, h_gt, got, want, lib
     for e_w, e_q, e_n, off, e_k, slab in HAMMING_EDGES:
         e_pq = words(e_q, e_w)
         e_gt = words(e_w, e_n + off + 3)[:, off:off + e_n]
@@ -1932,6 +2326,12 @@ def main() -> None:
     # No TPU kernel is on the GAN's path; its evaluate() launches K1 and K4
     # (checked in its own run; the kernels line keeps phase 4's and 7's).
     gan_stage(torch, dev)
+
+    # ---- phase 10: cifar10_step2 on a CIFAR-10 archive -------------------
+    # K1 and K4 at this path's shapes (48 bits; 1,000 x 54,000 at W = 2),
+    # with the launches of its own run, beside phase 3's
+    for name, extra in cifar10_step2(torch, dev, smi).items():
+        stats[name]["cifar10_step2"] = extra
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     stats["pm_groupmin_scan"].update(

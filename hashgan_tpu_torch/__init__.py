@@ -16,16 +16,18 @@ counterpart is easy to find:
 - ``eval/``    MAP@R, P@H<=r, tie-aware histogram MAP and the numpy oracle.
 - ``index/``   the packed gallery, the query engine / serving pipeline and
                the HTTP server.
-- ``configs``, ``data/``, ``utils/``  the config1-5 presets, the
-               synthetic splits, batching, preprocessing, checkpoints and
-               metrics logging.
+- ``configs``, ``data/``, ``utils/``  the presets and yaml configs, the
+               CIFAR-10 archive, list-file and synthetic splits, batching,
+               preprocessing (the AlexNet 256 -> 227 geometry among it),
+               checkpoints and metrics logging.
 - ``bench``, ``bench_scan``, ``bench_serve``, ``bench_pm8``, ``entry``
                the scan, serving and pm8-route benchmarks and the flagship
                inference entry point.
 
-It covers the serving path, every single-device search engine, stage-II
-training and evaluation without the GAN, and the measurement path; see
-ROADMAP.md for what is left.
+It covers the serving path, every single-device search engine, GAN stage
+I, stage-II training (with the AlexNet input protocol) and evaluation, on
+synthetic or real data, and the measurement path; see ROADMAP.md for what
+is left.
 """
 
 __version__ = "0.1.0"

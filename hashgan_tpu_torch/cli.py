@@ -7,6 +7,9 @@
   python -m hashgan_tpu_torch build-index --config config1 --out gallery.npz
   python -m hashgan_tpu_torch query --gallery gallery.npz --k 10
   python -m hashgan_tpu_torch serve --gallery gallery.npz [--config config1]
+  python -m hashgan_tpu_torch bench-scan [--bits 128 --n 1000000 --q 1024]
+  python -m hashgan_tpu_torch bench-serve [--bits 48 --n 1000000 --batch 256
+      --k 100]
 
 ``train --stage 1`` trains the GAN (where the config has one), ``--stage
 2`` the encoder, ``--stage all`` both in turn. ``--config`` takes a preset
@@ -15,6 +18,8 @@ name or a path to a yaml override file. Every command runs on CUDA device
 npz artifacts (either package reads the other's). ``serve --config``
 restores the encoder checkpoint of ``--workdir`` (default
 ``cfg.train.workdir``) and answers image queries as well as code queries.
+``bench-scan`` and ``bench-serve`` print ``bench_scan.run_bench`` and
+``bench_serve.run_serving_bench`` as one JSON line each.
 """
 
 from __future__ import annotations
@@ -134,6 +139,21 @@ def cmd_serve(args) -> None:
                   default_k=args.k)
 
 
+def cmd_bench_scan(args) -> None:
+    from hashgan_tpu_torch.bench_scan import run_bench
+
+    print(json.dumps(run_bench(bits=args.bits, n=args.n, q=args.q,
+                               device=_device(args.gpu))))
+
+
+def cmd_bench_serve(args) -> None:
+    from hashgan_tpu_torch.bench_serve import run_serving_bench
+
+    print(json.dumps(run_serving_bench(bits=args.bits, n=args.n,
+                                       batch=args.batch, k=args.k,
+                                       device=_device(args.gpu))))
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(prog="hashgan_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -188,6 +208,24 @@ def main(argv=None) -> None:
     w.add_argument("--port", type=int, default=8080)
     w.add_argument("--k", type=int, default=100)
     w.set_defaults(fn=cmd_serve)
+
+    s = with_gpu(sub.add_parser("bench-scan", help="Hamming scan "
+                                                   "throughput benchmark"),
+                 "runs the benchmark")
+    s.add_argument("--bits", type=int, default=128)
+    s.add_argument("--n", type=int, default=1_000_000)
+    s.add_argument("--q", type=int, default=1024)
+    s.set_defaults(fn=cmd_bench_scan)
+
+    v = with_gpu(sub.add_parser("bench-serve", help="end-to-end serving "
+                                                    "benchmark (images -> "
+                                                    "neighbours)"),
+                 "runs the benchmark")
+    v.add_argument("--bits", type=int, default=48)
+    v.add_argument("--n", type=int, default=1_000_000)
+    v.add_argument("--batch", type=int, default=256)
+    v.add_argument("--k", type=int, default=100)
+    v.set_defaults(fn=cmd_bench_serve)
 
     args = p.parse_args(argv)
     args.fn(args)

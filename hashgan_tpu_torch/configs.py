@@ -3,9 +3,10 @@
 yaml overrides.
 
 The reference's typed config tree (``hashgan_tpu/configs/config.py``) also
-carries the mesh and list-file settings, which the port does not read yet.
-These dataclasses hold what the port reads, the GAN's settings among them,
-under the reference's field names and with its defaults, so
+carries the mesh settings, which the port does not read yet. These
+dataclasses hold what the port reads, the GAN's settings, the real-data
+sources and the AlexNet input geometry among them, under the reference's
+field names and with its defaults, so
 ``cfg.encoder.bits`` means the same in both packages and a reference
 ``Config`` may be passed wherever the port takes one. One default differs on
 purpose: ``train.workdir`` is ``/tmp/hashgan_tpu_torch``, so torch
@@ -21,13 +22,24 @@ from typing import Any, Optional, Tuple
 
 @dataclass(frozen=True)
 class DataConfig:
-    """The synthetic stand-in of a dataset (``data/synthetic.py``)."""
+    """A dataset: a CIFAR-10 archive (``data/cifar10.py``), the reference's
+    list files (``data/loader.py``), or else the synthetic stand-in
+    (``data/synthetic.py``)."""
 
     name: str = "cifar10"
     image_size: int = 32
     channels: int = 3
     n_classes: int = 10
     multi_label: bool = False
+    # list files, a line "<image path> <0/1 label bits...>" each
+    train_list: Optional[str] = None
+    test_list: Optional[str] = None       # the query split
+    database_list: Optional[str] = None   # the gallery split
+    cifar10_dir: Optional[str] = None     # an extracted CIFAR-10 archive
+    # read by nothing, here or in the reference: kept so that yamls that
+    # set it load; a run without a CIFAR-10 archive or list files is
+    # synthetic whatever it says
+    synthetic: bool = True
     n_train: int = 5000
     n_query: int = 1000
     n_database: int = 54000
@@ -74,7 +86,10 @@ class EncoderConfig:
     iters: int = 10_000
     decay_lr: bool = False            # linear decay to 0 over ``iters``
     pretrained_npy: Optional[str] = None  # bvlc_alexnet.npy, loaded at init
-    input_resize: int = 0             # only 0 (native-size inputs) is ported
+    # the AlexNet input protocol: resize to resize_base (0: input_resize),
+    # crop to input_resize (0: native-size inputs)
+    input_resize: int = 0
+    resize_base: int = 0
     compute_dtype: str = "bfloat16"
 
 

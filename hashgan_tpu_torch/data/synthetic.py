@@ -1,4 +1,5 @@
-"""Synthetic image splits with a planted class signal.
+"""Synthetic image splits with a planted class signal, and the routing of
+a ``DataConfig`` to its splits (``make_splits``).
 
 Port of the numpy path of ``hashgan_tpu/data/synthetic.py:43-124, 258-271,
 330-405``: each class has a smooth template image and every sample is its
@@ -17,6 +18,7 @@ keeps no disk cache.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -99,8 +101,30 @@ def synth_generation_key(cfg) -> str:
 
 
 def make_splits(cfg) -> Dict[str, SyntheticImageDataset]:
-    """Train, query and database splits of ``cfg`` (a ``DataConfig``), with
-    seed offsets 0, 1 and 2 and shared templates."""
+    """Train, query and database splits of ``cfg`` (a ``DataConfig``), as
+    the reference routes them: from the CIFAR-10 archive at
+    ``cifar10_dir``; else from the three list files, all of which must be
+    configured and on disk (``FileNotFoundError`` names the missing ones);
+    else synthetic, with seed offsets 0, 1 and 2 and shared templates."""
+    if cfg.cifar10_dir:
+        from hashgan_tpu_torch.data.cifar10 import make_cifar10_splits
+
+        return make_cifar10_splits(cfg.cifar10_dir, cfg)
+    lists = {("train", "train_list"): cfg.train_list,
+             ("query", "test_list"): cfg.test_list,
+             ("database", "database_list"): cfg.database_list}
+    if any(lists.values()):
+        # a half-configured set would mix synthetic splits into real data
+        problems = [f"{name}={path!r}" for (_, name), path in lists.items()
+                    if path is None or not os.path.exists(path)]
+        if problems:
+            raise FileNotFoundError(
+                "list-file datasets need all of train/test/database lists "
+                "configured and on disk; missing: " + ", ".join(problems))
+        from hashgan_tpu_torch.data.loader import load_list_dataset
+
+        return {split: load_list_dataset(path, cfg)
+                for (split, _), path in lists.items()}
     templates = None
     out: Dict[str, SyntheticImageDataset] = {}
     for split, n, seed_off in (("train", cfg.n_train, 0),

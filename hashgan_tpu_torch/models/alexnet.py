@@ -10,7 +10,9 @@ conv5 (two groups) -> max-pool -> fc6 -> fc7 (ReLU and dropout after each)
   skipped where the map is under 3x3, so a 64x64 input reaches fc6 as
   2 x 2 x 256 = 1,024 features and a 227x227 one as 6 x 6 x 256 = 9,216;
 - torch needs fc6's width at construction, so the module takes the input
-  side (``image_size``);
+  side (``image_size``), or ``input_resize`` where that is set: inputs of
+  another side are then resized to it (bilinear, antialiased), after the
+  cast to the compute dtype, as the reference does;
 - the conv5 map is flattened in NHWC order (h, w, c), as Flax flattens it,
   so fc6's weight rows keep the reference's (and bvlc_alexnet.npy's) order;
 - ``embed_norm`` is Flax's LayerNorm, epsilon 1e-6, in float32;
@@ -19,9 +21,6 @@ conv5 (two groups) -> max-pool -> fc6 -> fc7 (ReLU and dropout after each)
   generator, so a step stays a pure function of its inputs): one seed is
   drawn from it, and the masks are drawn on the input's device from a
   generator seeded with it.
-
-``input_resize > 0`` (the reference's 227 protocol) is not ported and
-raises.
 """
 
 from __future__ import annotations
@@ -34,6 +33,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from hashgan_tpu_torch.data.preprocess import resize_images
 from hashgan_tpu_torch.models.encoders import HashHead, conv, init_like_flax
 from hashgan_tpu_torch.models.layers import local_response_norm
 
@@ -61,16 +61,14 @@ class AlexNetEncoder(nn.Module):
                  input_resize: int = 0, device: torch.device | str = "cpu",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if input_resize:
-            raise NotImplementedError(
-                "input_resize > 0 (the AlexNet 227 protocol) is not ported yet "
-                "(ROADMAP.md)")
+        image_size = input_resize or image_size
         if image_size < 11:
             raise ValueError(f"AlexNet needs inputs of at least 11x11, got "
                              f"{image_size}")
         self.bits = bits
         self.dtype = dtype
         self.dropout_rate = dropout_rate
+        self.input_resize = input_resize
         self.conv1 = nn.Conv2d(3, 96, 11, stride=4)
         self.conv2 = nn.Conv2d(96, 256, 5, groups=2)
         self.conv3 = nn.Conv2d(256, 384, 3)
@@ -108,7 +106,10 @@ class AlexNetEncoder(nn.Module):
             seed = int(torch.randint(0, 1 << 62, (), generator=generator))
             masks = torch.Generator(device=x.device).manual_seed(seed)
         dt = self.dtype
-        h = x.to(dt).permute(0, 3, 1, 2)
+        h = x.to(dt)
+        if self.input_resize and h.shape[1] != self.input_resize:
+            h = resize_images(h, self.input_resize)
+        h = h.permute(0, 3, 1, 2)
         h = F.relu(conv(h, self.conv1, dt, same=False))
         h = _maxpool(local_response_norm(h, dim=1))
         h = F.relu(conv(h, self.conv2, dt))

@@ -209,7 +209,8 @@ def build_encoder(arch: str, bits: int, dtype: torch.dtype = torch.float32,
                   image_size: int = 227, input_resize: int = 0) -> nn.Module:
     """The port of ``build_encoder``. ``image_size`` is the side of the
     inputs, which AlexNet needs to size fc6 (the reference's Dense infers
-    it at init); ``input_resize > 0`` (the 227 protocol) is not ported."""
+    it at init); with ``input_resize > 0`` AlexNet resizes its inputs to
+    that side and sizes fc6 for it."""
     if arch == "small_cnn":
         return SmallCNNEncoder(bits=bits, dtype=dtype, device=device,
                                generator=generator)

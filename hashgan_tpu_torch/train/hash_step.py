@@ -9,8 +9,11 @@ forward also receives (AlexNet seeds its dropout masks from it), so a step
 is a pure function of its inputs and a resumed run repeats it exactly.
 Given a generator, a step also trains on generated images (the reference's
 ``hash_step.py:66-89``): ``max(1, int(B * fake_ratio))`` fakes conditioned
-on the first labels of the batch, which they inherit. The AlexNet input
-geometry is not ported.
+on the first labels of the batch, which they inherit. With
+``cfg.encoder.input_resize > 0`` the step applies the AlexNet training
+geometry to the real and generated images together, and the encode
+function the evaluation geometry, for any arch, as the reference does
+(``hash_step.py:91-98, 135-141``).
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from torch import nn
 
 from hashgan_tpu_torch.data.preprocess import (
     _on,
+    alexnet_eval_geometry,
+    alexnet_train_geometry,
     gan_to_encoder_input,
     random_crop,
     random_flip,
@@ -31,13 +36,6 @@ from hashgan_tpu_torch.data.preprocess import (
 )
 from hashgan_tpu_torch.losses.pairwise import wml_pairwise_loss
 from hashgan_tpu_torch.train.state import EncoderState
-
-
-def _check_ported(cfg) -> None:
-    if cfg.encoder.input_resize > 0:
-        raise NotImplementedError(
-            "input_resize > 0 (the AlexNet train geometry) is not ported yet "
-            "(ROADMAP.md)")
 
 
 def encoder_loss_and_grad(encoder: nn.Module, x: torch.Tensor,
@@ -88,28 +86,34 @@ def add_fakes(x: torch.Tensor, labels: torch.Tensor, cfg,
 
 
 def make_encoder_train_step(cfg) -> Callable:
-    """``step(state, images_u8, labels, sample=None, flip=None, z=None) ->
-    metrics``: updates ``state`` (an ``EncoderState``) in place, advances
-    ``state.step``, and returns the loss metrics as 0-dim tensors on the
-    device (reading them synchronises; the loop does so at log points
-    only). ``images_u8`` (B, H, W, C) uint8 and ``labels`` (B, K) float32
-    are tensors on the encoder's device. With ``sample`` (G's sampler, see
-    ``add_fakes``) the batch is extended by ``max(1, int(B * fake_ratio))``
-    generated images, after the flip (and crop) of the real ones. ``flip``
-    (B,) bool and ``z`` (n_fake, z_dim) replace the step's own draws (the
-    parity tests feed the reference's)."""
-    _check_ported(cfg)
+    """``step(state, images_u8, labels, sample=None, flip=None, z=None,
+    crop=None, geometry=None) -> metrics``: updates ``state`` (an
+    ``EncoderState``) in place, advances ``state.step``, and returns the
+    loss metrics as 0-dim tensors on the device (reading them synchronises;
+    the loop does so at log points only). ``images_u8`` (B, H, W, C) uint8
+    and ``labels`` (B, K) float32 are tensors on the encoder's device. With
+    ``sample`` (G's sampler, see ``add_fakes``) the batch is extended by
+    ``max(1, int(B * fake_ratio))`` generated images, after the flip (and
+    crop) of the real ones; the AlexNet geometry (``input_resize > 0``)
+    then applies to all of them. ``flip`` (B,) bool, ``crop`` (B,) and
+    ``geometry`` (B + n_fake,) integer offsets and ``z`` (n_fake, z_dim)
+    replace the step's own draws (the parity tests feed the reference's)."""
     crop_pad = cfg.train.crop_pad
+    input_resize = cfg.encoder.input_resize
+    resize_base = cfg.encoder.resize_base
     seed = cfg.train.seed
 
     def step(state: EncoderState, images_u8: torch.Tensor,
              labels: torch.Tensor, sample: Optional[Callable] = None,
              flip: Optional[torch.Tensor] = None,
-             z: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+             z: Optional[torch.Tensor] = None,
+             crop: Optional[torch.Tensor] = None,
+             geometry: Optional[torch.Tensor] = None,
+             ) -> Dict[str, torch.Tensor]:
         gen = step_generator(seed, state.step)
         x = random_flip(gen, to_encoder_input(images_u8), flip)
         if crop_pad > 0:
-            x = random_crop(gen, x, pad=crop_pad)
+            x = random_crop(gen, x, pad=crop_pad, offsets=crop)
         weights = None
         if sample is not None:
             if z is None:
@@ -117,6 +121,9 @@ def make_encoder_train_step(cfg) -> Callable:
                 z = torch.randn(n_fake, cfg.gan.z_dim, generator=gen)
             x, labels, weights = add_fakes(x, labels, cfg, sample,
                                            _on(z, x.device))
+        if input_resize > 0:
+            x = alexnet_train_geometry(gen, x, input_resize, resize_base,
+                                       offsets=geometry)
         _, metrics = encoder_loss_and_grad(state.module, x, labels, cfg,
                                            generator=gen,
                                            sample_weight=weights)
@@ -134,15 +141,11 @@ def make_encode_fn(encoder: nn.Module, cfg=None) -> Callable:
     encoder's device; the module's previous mode is restored afterwards.
     ``images_u8`` is an (B, H, W, 3) uint8 tensor or numpy array. The
     reference's ``make_encode_fn`` takes ``params`` as well; here they live
-    in the module.
-
-    Only ``cfg.encoder.input_resize == 0`` (native-size inputs) is ported;
-    the AlexNet resize/crop protocol (the 227 geometry) is not."""
-    if cfg is not None and cfg.encoder.input_resize > 0:
-        raise NotImplementedError(
-            "input_resize > 0 (the AlexNet eval geometry) is not ported yet "
-            "(ROADMAP.md)"
-        )
+    in the module. With ``cfg.encoder.input_resize > 0`` the images pass
+    the AlexNet evaluation geometry (resize to ``resize_base``, the central
+    crop) in float32 before the forward."""
+    input_resize = cfg.encoder.input_resize if cfg is not None else 0
+    resize_base = cfg.encoder.resize_base if cfg is not None else 0
     device = next(encoder.parameters()).device
 
     def encode(images_u8) -> torch.Tensor:
@@ -153,7 +156,10 @@ def make_encode_fn(encoder: nn.Module, cfg=None) -> Callable:
         encoder.eval()
         try:
             with torch.inference_mode():
-                return encoder(to_encoder_input(x.to(device)))
+                x = to_encoder_input(x.to(device))
+                if input_resize > 0:
+                    x = alexnet_eval_geometry(x, input_resize, resize_base)
+                return encoder(x)
         finally:
             encoder.train(was_training)
 

@@ -16,7 +16,8 @@ then Hamming-ranking evaluation and the index.
   histograms), and the PR / precision@top-N curves in the workdir;
 - ``build_index``: the packed gallery artifact;
 - ``save_checkpoint`` / ``restore_checkpoint``: the encoder and the GAN,
-  for bit-exact resume.
+  for bit-exact resume, with the reference's migrations (``:778-870``) and
+  its data-provenance record (``:709-735``).
 
 One device, no mesh and no device-resident batch feed: those raise, naming
 ROADMAP.md. The experiment runs on the first CUDA device unless the caller
@@ -25,6 +26,7 @@ passes ``device="cpu"`` (as the tests do).
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import warnings
@@ -72,8 +74,6 @@ from hashgan_tpu_torch.utils.logging import MetricsLogger
 class Experiment:
     def __init__(self, cfg, workdir: Optional[str] = None,
                  device: Optional[torch.device | str] = None):
-        # first: it refuses what is not ported (the AlexNet geometry)
-        # before the splits are generated
         self._enc_step = make_encoder_train_step(cfg)
         set_numerics()
         self.cfg = cfg
@@ -386,9 +386,23 @@ class Experiment:
     # Checkpoint / resume
     # ------------------------------------------------------------------
     def _data_provenance(self) -> str:
-        """The exact data bits this run trains on: the synthetic numpy
-        path's generation key."""
-        return "synth:" + synth_generation_key(self.cfg.data)
+        """The data this run trains on, as the reference records it: a
+        CIFAR-10 archive by the sha256 of its sorted ``name:size;``
+        listing, list files by the sha256 of the train list's bytes (both
+        cut to 16 hex digits), else the synthetic numpy path's generation
+        key. So the same archive moved elsewhere still resumes, and a list
+        file edited in place does not."""
+        d = self.cfg.data
+        if d.cifar10_dir:
+            h = hashlib.sha256()
+            for name in sorted(os.listdir(d.cifar10_dir)):
+                size = os.path.getsize(os.path.join(d.cifar10_dir, name))
+                h.update(f"{name}:{size};".encode())
+            return f"cifar10:{h.hexdigest()[:16]}"
+        if d.train_list:
+            with open(d.train_list, "rb") as f:
+                return f"lists:{hashlib.sha256(f.read()).hexdigest()[:16]}"
+        return "synth:" + synth_generation_key(d)
 
     def save_checkpoint(self) -> None:
         """The encoder (module, optimiser, schedule, step) and, with a GAN,
@@ -423,27 +437,21 @@ class Experiment:
 
     def restore_checkpoint(self) -> bool:
         """Restore the latest checkpoint of the workdir; False when there
-        is none. Raises when it was trained on other data, or with another
-        optimiser layout (a changed ``hash_lr_multiplier``). A checkpoint
-        without a GAN leaves the GAN state as it is; one with an EMA of G's
-        weights but none of its statistics seeds the latter from the
-        restored statistics (the reference's migration)."""
+        is none. Raises when it was trained on other data. The encoder's
+        optimiser keeps its Adam moments and step counts, and takes its
+        parameter groups, their lr and the schedule's base lr from the
+        current config (the reference's migration across
+        ``hash_lr_multiplier`` 1 <-> != 1, where the groups differ). A
+        checkpoint without a GAN leaves the GAN state as it is; one with
+        an EMA of G's weights but none of its statistics seeds the latter
+        from the restored statistics (the reference's other migration)."""
         saved = self.ckpt.restore()
         if saved is None:
             return False
         check_provenance(self.workdir, self._data_provenance())
         st = self.encoder_state
-        n_saved = len(saved["optimizer"]["param_groups"])
-        if n_saved != len(st.optimizer.param_groups):
-            raise ValueError(
-                f"the checkpoint's optimiser has {n_saved} parameter groups "
-                f"and this config's {len(st.optimizer.param_groups)} (was "
-                "hash_lr_multiplier changed?); migrating between them is not "
-                "ported (ROADMAP.md)")
         st.module.load_state_dict(saved["encoder"])
-        st.optimizer.load_state_dict(saved["optimizer"])
-        if st.scheduler is not None and saved["scheduler"] is not None:
-            st.scheduler.load_state_dict(saved["scheduler"])
+        _load_encoder_optimizer(st, saved["optimizer"], saved["scheduler"])
         st.step = int(saved["step"])
         gan = saved.get("gan")
         if self.gan_state is not None and gan is not None:
@@ -480,3 +488,30 @@ class Experiment:
         self.logger.log(self.encoder_state.step, metrics)
         self.logger.flush()
         return metrics
+
+
+def _load_encoder_optimizer(st, opt_state: dict,
+                            sched_state: Optional[dict]) -> None:
+    """The saved Adam state under the current config's parameter groups.
+    ``parameter_groups`` orders the parameters backbone then hash layer in
+    one group or in two, so the saved per-parameter state keeps its
+    indices in either layout; a schedule keeps its update count, and each
+    group's lr is the current base lr at that count."""
+    groups = st.optimizer.state_dict()["param_groups"]
+    n_saved = sum(len(g["params"]) for g in opt_state["param_groups"])
+    n_now = sum(len(g["params"]) for g in groups)
+    if n_saved != n_now:
+        raise ValueError(
+            f"the checkpoint's optimiser holds {n_saved} parameters and this "
+            f"config's encoder {n_now}: the states cannot be mapped")
+    st.optimizer.load_state_dict({"state": opt_state["state"],
+                                  "param_groups": groups})
+    sched = st.scheduler
+    if sched is None or sched_state is None:
+        return
+    sched.load_state_dict({**sched_state, "base_lrs": list(sched.base_lrs),
+                           "lr_lambdas": [None] * len(groups)})
+    for g, base, factor in zip(st.optimizer.param_groups, sched.base_lrs,
+                               sched.lr_lambdas):
+        g["lr"] = base * factor(sched.last_epoch)
+    sched._last_lr = [g["lr"] for g in st.optimizer.param_groups]

@@ -250,8 +250,9 @@ def test_build_encoder_and_dropout():
                         generator=torch.Generator().manual_seed(1))
     assert isinstance(enc, AlexNetEncoder)
     assert {p.dtype for p in enc.parameters()} == {torch.float32}
-    with pytest.raises(NotImplementedError, match="input_resize"):
-        build_encoder("alexnet", 48, input_resize=227)
+    # the 227 protocol: fc6 sized for 227x227 whatever the data's side
+    assert build_encoder("alexnet", 48, image_size=32,
+                         input_resize=227).fc6.in_features == 9216
     x = to_encoder_input(torch.from_numpy(_images(3, 32, seed=2)))
     enc.eval()
     with torch.no_grad():

@@ -6,6 +6,7 @@ so); what is checked here is that the witnesses hold and the results carry
 the reference's keys. ``entry()`` is held against the JAX ``entry()`` with
 the weights carried over by flax_to_torch: the packed words are equal."""
 
+import json
 import os
 import subprocess
 import sys
@@ -173,3 +174,34 @@ def test_bench_entry_point_fails_without_gpu():
                          timeout=120)
     assert out.returncode != 0 and "no CUDA device" in out.stderr
     assert out.stdout.strip() == ""
+
+
+def test_cli_bench_commands(monkeypatch, capsys):
+    """``bench-scan`` and ``bench-serve`` print their benchmark's result as
+    one JSON line, with the reference's defaults and the device the CLI
+    chose (here the CPU, at toy sizes for bench-serve); without a GPU the
+    command fails before printing anything."""
+    from hashgan_tpu_torch import bench_scan, cli
+
+    monkeypatch.setattr(cli, "_device", lambda gpu: torch.device("cpu"))
+    calls = []
+    monkeypatch.setattr(bench_scan, "run_bench",
+                        lambda **kw: calls.append(kw) or {"value": 1.0})
+    cli.main(["bench-scan"])
+    assert json.loads(capsys.readouterr().out) == {"value": 1.0}
+    assert calls == [{"bits": 128, "n": 1_000_000, "q": 1024,
+                      "device": torch.device("cpu")}]
+    cli.main(["bench-serve", "--bits", "32", "--n", "3000", "--batch", "8",
+              "--k", "10"])
+    out = json.loads(capsys.readouterr().out)
+    assert out["verified"] is True and out["device"]["platform"] == "cpu"
+    assert out["bits"] == 32 and out["batch"] == 8 and out["k"] == 10
+
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    for cmd in ("bench-scan", "bench-serve"):
+        res = subprocess.run([sys.executable, "-m", "hashgan_tpu_torch.cli",
+                              cmd], cwd=REPO, env=env, capture_output=True,
+                             text=True, timeout=120)
+        assert res.returncode != 0 and "no CUDA device" in res.stderr, cmd
+        assert res.stdout.strip() == "", cmd

@@ -20,7 +20,10 @@ from hashgan_tpu.configs import get_config
 from hashgan_tpu.data.preprocess import to_encoder_input as prep_jax
 from hashgan_tpu.models.encoders import SmallCNNEncoder as FlaxEncoder
 from hashgan_tpu.ops.ref_numpy import pack_codes_np
-from hashgan_tpu_torch.data.preprocess import to_encoder_input
+from hashgan_tpu_torch.data.preprocess import (
+    alexnet_eval_geometry,
+    to_encoder_input,
+)
 from hashgan_tpu_torch.models.convert import flax_to_torch
 from hashgan_tpu_torch.models.encoders import (
     SmallCNNEncoder,
@@ -163,13 +166,20 @@ def test_seeded_init_and_bfloat16_compute():
 
 
 def test_unported_archs_and_geometry_raise():
-    # every reference arch is ported; the 227 input protocol is not
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_encoder("alexnet", 32, input_resize=227)
+    # every reference arch and the 227 input protocol are ported: an
+    # unknown arch still raises; AlexNet at input_resize 227 has bvlc's
+    # fc6, and the encode function applies the evaluation geometry
+    assert build_encoder("alexnet", 32,
+                         input_resize=227).fc6.in_features == 9216
     with pytest.raises(ValueError, match="unknown encoder"):
         build_encoder("vgg", 32)
     cfg = get_config("config2")
-    cfg = dataclasses.replace(
-        cfg, encoder=dataclasses.replace(cfg.encoder, input_resize=227))
-    with pytest.raises(NotImplementedError, match="input_resize"):
-        make_encode_fn(SmallCNNEncoder(bits=48, dim=8), cfg)
+    cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+        cfg.encoder, input_resize=24, resize_base=28))
+    enc = SmallCNNEncoder(bits=48, dim=8)
+    images = _images(2, seed=7)
+    with torch.no_grad():
+        want = enc(alexnet_eval_geometry(
+            to_encoder_input(torch.from_numpy(images)), 24, 28))
+    got = make_encode_fn(enc, cfg)(images)
+    assert got.shape == (2, 48) and torch.equal(got, want)

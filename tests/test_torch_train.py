@@ -233,6 +233,26 @@ def test_crop_matches_the_reference_edge_padding():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def test_crop_offsets_lie_on_the_diagonal():
+    """The reference draws a crop's row and column offsets from one key,
+    so they are equal; the port draws one offset an example and uses it for
+    both axes. Each crop of distinct pixels equals the window at (r, r) for
+    some r, and over 32 examples every r in [0, 2 * pad] occurs."""
+    images = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (32, 8, 8, 3)).astype(np.float32))
+    r_jax = jax.random.randint(jax.random.key(1), (32,), 0, 5)
+    assert jnp.array_equal(r_jax, jax.random.randint(jax.random.key(1),
+                                                     (32,), 0, 5))
+    got = random_crop(step_generator(0, 3), images, pad=2)
+    seen = set()
+    for i in range(32):
+        hits = [r for r in range(5) if torch.equal(got[i], crop_images(
+            images[i:i + 1], torch.tensor([r]), torch.tensor([r]), 2)[0])]
+        assert len(hits) == 1, f"example {i}: crop off the diagonal"
+        seen.add(hits[0])
+    assert seen == set(range(5))
+
+
 def _tiny_cfg(tmp_path, **train):
     cfg = get_config("config1")
     return dataclasses.replace(
@@ -321,8 +341,9 @@ def test_experiment_evaluates_as_the_oracle(tmp_path):
 
 def test_train_step_restores_nothing_it_should_not(tmp_path):
     """The encode function leaves the module's mode as it found it; the
-    train step refuses what is not ported (the AlexNet input geometry) and
-    takes ``use_gan`` configs, whose stage II trains on real images."""
+    train step and the Experiment take the AlexNet input geometry (here
+    SmallCNN's 16x16 images at 20 -> 18) and ``use_gan`` configs, whose
+    stage II trains on real images."""
     enc = SmallCNNEncoder(bits=32, dim=8)
     enc.train()
     make_encode_fn(enc)(np.zeros((2, 16, 16, 3), np.uint8))
@@ -332,11 +353,12 @@ def test_train_step_restores_nothing_it_should_not(tmp_path):
     assert not enc.training
     cfg = _tiny_cfg(tmp_path)
     resized = dataclasses.replace(cfg, encoder=dataclasses.replace(
-        cfg.encoder, input_resize=227))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_encoder_train_step(resized)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Experiment(resized, device="cpu")
+        cfg.encoder, input_resize=18, resize_base=20))
+    make_encoder_train_step(resized)
+    exp = Experiment(resized, device="cpu")
+    exp.train_encoder(2, eval_during=False)
+    assert exp.encoder_state.step == 2
+    assert exp.encode_split("query").shape == (cfg.data.n_query, 32)
     make_encoder_train_step(dataclasses.replace(cfg, use_gan=True))
 
 
