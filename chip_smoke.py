@@ -2,7 +2,8 @@
 every single-device search engine, config1's stage-II training and
 evaluation, the measurement path (the scan and serving benchmarks, the
 scan variants, the flagship ``entry()``, the AlexNet and ResNet encoders),
-and config2's GAN stage I with co-training.
+config2's GAN stage I with co-training, the paper's cifar10_step2, and the
+device-resident batch feed.
 
     python3 chip_smoke.py        (from the repository root; no arguments)
 
@@ -29,8 +30,15 @@ images, evaluated, then ``configs/cifar10_step2.yaml`` (AlexNet 48 bits on
 the 256 -> 227 input protocol) with config2's GAN trained by ``train
 --stage all`` on a 60,000-image CIFAR-10 binary archive written from a
 seed, evaluated at MAP@5000 and served, with kernels 1 and 4 at its shapes
-and one 227 step on the card against the CPU. Every answer is checked
-against plain witnesses and numpy oracles. Imports nothing of
+and one 227 step on the card against the CPU, then the device-resident
+batch feed (``train.device_data``, phase 11): config1 and config4's
+geometry (ResNet-18 64 bits, 64 px, a 100,000-image database held on the
+card) on the host feed and on the device feed with stage II as one CUDA
+graph a step, timed with idle shares and evaluated, the resident encode
+against ``encode_dataset``, and the graph held bit for bit to eager
+steps, windows, a mid-window resume, a 227 co-training step and config2's
+GAN windows. Every answer is checked against plain witnesses and numpy
+oracles. Imports nothing of
 JAX and nothing of the JAX package ``hashgan_tpu``: the presets and the
 synthetic images come from the port.
 
@@ -174,6 +182,26 @@ CONFIG_ENCODERS = ("config2", "config4")  # AlexNet 48 bits, ResNet 64 bits
 # stage-II steps of train --stage all, stage-II steps timed after them
 P10_PER_CLASS = 6000
 P10_GAN_CYCLES, P10_STEPS, P10_TIMED_STEPS = 20, 100, 20
+# phase 11: config1's steps on each feed and the first of them (the graph's
+# warm-up and capture), config4's, and the steps of the bit-exact checks.
+# The gate on the graph's parameters against the host feed's with plain
+# Adam after P11_EXACT config1 steps (the norm of the difference over the
+# norm): capturable Adam rounds its update otherwise, and the bf16 forward
+# turns rounding-level parameter changes into other gradients, so the runs
+# drift apart; the first run read 0.0789 (NVIDIA H100 80GB HBM3, 700 W),
+# and the gate is about 3x that: a bound on that drift alone, which sits
+# above the 0.125 the 20 steps moved the parameters (same card), so it
+# cannot tell a feed that does not train. Two checks can: the host feed
+# with capturable Adam, held to the graph bit for bit, and the same
+# comparison after one step from the same weights and batch, where only
+# Adam's arithmetic differs: the first run read 1.88e-7 there, against
+# the 0.0281 the step moved the parameters, and P11_STEP1_GATE is about
+# 5x that reading.
+P11_STEPS, P11_FIRST = 500, 100
+P11_C4_STEPS, P11_C4_FIRST = 200, 100
+P11_EXACT = 20
+P11_FEED_GATE = 0.25
+P11_STEP1_GATE = 1e-6
 
 
 def check(cond: bool, what: str) -> None:
@@ -1707,6 +1735,460 @@ def cifar10_step2(torch, dev, smi: str) -> dict:
     return {"pack": k1, "hamming": k4}
 
 
+@contextlib.contextmanager
+def given_splits(splits):
+    """Experiments made inside take ``splits`` in place of the ones
+    ``make_splits`` would draw (on the host, about 36 s for config4's
+    118,000 images at 64 px), so one set serves several Experiments."""
+    from hashgan_tpu_torch.train import loop
+
+    made = loop.make_splits
+    loop.make_splits = lambda data: splits
+    try:
+        yield
+    finally:
+        loop.make_splits = made
+
+
+def card_synthetic(torch, dev, n: int, n_classes: int, size: int, seed: int,
+                   templates=None):
+    """``data/synthetic.py``'s recipe (a smooth template a class plus
+    Gaussian noise of scale 40, clipped to uint8, one-hot labels) drawn on
+    the card from ``seed``, returned on the host as a split. Returns
+    (split, templates on the card)."""
+    from hashgan_tpu_torch.data.synthetic import SyntheticImageDataset
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if templates is None:
+        low = max(4, size // 8)
+        templates = (torch.rand(n_classes, low, low, 3, device=dev,
+                                generator=gen) * 255.0)
+        templates = templates.repeat_interleave(size // low, 1) \
+            .repeat_interleave(size // low, 2)
+    cls = torch.randint(0, n_classes, (n,), device=dev, generator=gen)
+    images = torch.empty(n, size, size, 3, dtype=torch.uint8, device=dev)
+    for lo in range(0, n, 8192):
+        c = cls[lo:lo + 8192]
+        noise = torch.randn((len(c), size, size, 3), device=dev,
+                            generator=gen) * 40.0
+        images[lo:lo + 8192] = (templates[c] + noise).clamp(0, 255).to(
+            torch.uint8)
+    labels = torch.nn.functional.one_hot(cls, n_classes).float()
+    return (SyntheticImageDataset(images.cpu().numpy(), labels.cpu().numpy()),
+            templates)
+
+
+def oracle_eval(exp, R: int, radius: int, db_codes=None,
+                chunk: int = 250) -> tuple:
+    """The numpy oracle's (MAP@R, P@H<=r) on an Experiment's codes (the
+    database's ``db_codes`` where given), a chunk of queries a thread
+    (numpy's sorts release the GIL), weighted by the chunk's size."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from hashgan_tpu_torch.eval import oracle
+    from hashgan_tpu_torch.ops.pack import pack_codes
+
+    if db_codes is None:
+        db_codes = exp.encode_split("database")
+    pq = pack_codes(exp.encode_split("query")).cpu().numpy().view(np.uint32)
+    pg = pack_codes(db_codes).cpu().numpy().view(np.uint32)
+    ql, dl = exp.splits["query"].labels, exp.splits["database"].labels
+
+    def part(lo):
+        d = oracle_distances(pq[lo:lo + chunk], pg)
+        q = ql[lo:lo + chunk]
+        return (len(q), oracle.mean_average_precision_np(d, q, dl, R=R),
+                oracle.precision_at_radius_np(d, q, dl, radius=radius))
+
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        parts = list(pool.map(part, range(0, len(pq), chunk)))
+    n = sum(p[0] for p in parts)
+    return (sum(p[0] * p[1] for p in parts) / n,
+            sum(p[0] * p[2] for p in parts) / n)
+
+
+def _timed_train(torch, exp, steps: int) -> tuple:
+    """``exp.train_encoder(steps)`` without evaluation: (host ms a step,
+    device ms a step over CUDA events around it)."""
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    exp.train_encoder(steps, eval_during=False)
+    end.record()
+    torch.cuda.synchronize()
+    return ((time.perf_counter() - t0) * 1e3 / steps,
+            start.elapsed_time(end) / steps)
+
+
+def _busy_ms(torch, exp, steps: int) -> tuple:
+    """Kernel ms a step (the profiler) over ``steps`` steps of ``exp``'s
+    feed: replays of its graph with the device feed, the host feed's steps
+    otherwise. Returns (ms, what was profiled)."""
+    if exp.cfg.train.device_data:
+        busy, _ = kernel_breakdown(torch, lambda: exp._graphed.run(steps))
+        if busy > 0:
+            return busy / steps, "graph replays"
+        # the profiler sees no kernel inside a replay: the same kernels,
+        # launched one by one
+        busy, _ = kernel_breakdown(
+            torch, lambda: [exp._graphed.step() for _ in range(steps)])
+        return busy / steps, "eager steps (no kernel seen in a replay)"
+    busy, _ = kernel_breakdown(
+        torch, lambda: exp.train_encoder(steps, eval_during=False))
+    return busy / steps, "host-feed steps"
+
+
+def _feed_run(torch, cfg, steps: int, first: int) -> dict:
+    """``Experiment(cfg)`` trains ``first`` steps (with the device feed,
+    the graph's warm-up and capture), then ``steps - first`` timed; then
+    the idle share from the profiler over 20 more."""
+    from hashgan_tpu_torch.train.loop import Experiment
+
+    exp = Experiment(cfg)
+    host0, dev0 = _timed_train(torch, exp, first)
+    host, dev = _timed_train(torch, exp, steps - first)
+    busy, profiled = _busy_ms(torch, exp, 20)
+    return {"exp": exp, "first": (host0, dev0), "host_ms": host,
+            "device_ms": dev, "busy_ms": busy, "profiled": profiled,
+            "idle": max(0.0, 1.0 - busy / dev)}
+
+
+def _evaluated(torch, exp, db_codes=None) -> str:
+    """``exp.evaluate()``, which must launch K1 and K4, against the numpy
+    oracle within 1e-6 (on ``db_codes`` where given, the database's codes
+    already made); its line."""
+    from hashgan_tpu_torch.ops import _build
+
+    cfg = exp.cfg
+    R, radius = cfg.eval.R, cfg.eval.precision_radius
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    m = exp.evaluate()
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    check(counts["pack"] > 0 and counts["hamming"] > 0,
+          f"evaluate() did not launch K1 and K4: {counts}")
+    o_map, o_p = oracle_eval(exp, R, radius, db_codes)
+    got = (m[f"map_at_{R}"], m[f"precision_at_h{radius}"])
+    check(abs(got[0] - o_map) <= 1e-6 and abs(got[1] - o_p) <= 1e-6,
+          f"evaluate() {m} != numpy oracle ({o_map}, {o_p})")
+    return (f"evaluate() {eval_s:.3f} s, MAP@{R} {got[0]:.6f} P@H<={radius} "
+            f"{got[1]:.6f} == numpy oracle (|diff| {abs(got[0] - o_map):.2g}"
+            f", {abs(got[1] - o_p):.2g}), K1 {counts['pack']} K4 "
+            f"{counts['hamming']} launches")
+
+
+def _feed_line(name: str, r: dict, first: int, steps: int) -> str:
+    return (f"{name}: {r['host_ms']:.3f} host ms, {r['device_ms']:.3f} "
+            f"device ms a step over steps {first + 1}-{steps} (steps 1-"
+            f"{first}: {r['first'][0]:.3f} / {r['first'][1]:.3f}), "
+            f"{r['busy_ms']:.3f} ms of kernels ({r['profiled']}), idle "
+            f"{r['idle']:.3f}")
+
+
+def _param_diffs(torch, got, want) -> tuple:
+    """Two modules' parameters apart: (the norm of the difference over
+    the norm of ``want``'s, all parameters as one vector; the largest
+    entry difference over the largest magnitude, tensor by tensor)."""
+    pairs = [(a.detach().double(), b.detach().double())
+             for a, b in zip(got.parameters(), want.parameters())]
+    diff = math.sqrt(sum(float((a - b).square().sum()) for a, b in pairs))
+    norm = math.sqrt(sum(float(b.square().sum()) for _, b in pairs))
+    return diff / norm, max(float((a - b).abs().max() / b.abs().max())
+                            for a, b in pairs)
+
+
+def device_feed(torch, dev, smi: str) -> None:
+    """Phase 11: ``train.device_data`` on the card. config1 (SmallCNN dim
+    64, 32 bits, batch 64, its preset's splits) trains P11_STEPS steps on
+    the host feed and on the device feed with stage II graphed, each
+    timed, profiled and evaluated against the numpy oracle; config4's
+    geometry (ResNet-18, 64 bits, 64 px, 100 classes, 13,000 / 5,000 /
+    100,000 images drawn on the card) the same at P11_C4_STEPS steps, with
+    the resident encode of its database against ``encode_dataset``
+    (bit-identical codes). Then the bit-exact checks: graph == eager steps,
+    window 5 == window 1, 7 + save + restore + 13 == 20, a
+    cifar10_step2-shaped 227 step graphed == eager (dropout, geometry, co-
+    training), config2's GAN in windows of 2 == windows of 1, config3's
+    balanced sampler on the card; and the device feed against the host
+    feed after P11_EXACT steps (the graph's Adam keeps its lr in float32)."""
+    from hashgan_tpu_torch.configs import get_config
+    from hashgan_tpu_torch.data.device_data import (
+        DeviceBatchSource,
+        ResidentEncoder,
+    )
+    from hashgan_tpu_torch.data.synthetic import (
+        SyntheticImageDataset,
+        make_splits,
+        make_synthetic,
+    )
+    from hashgan_tpu_torch.train.graph_step import GraphedEncoderStep
+    from hashgan_tpu_torch.train.hash_step import encode_dataset
+    from hashgan_tpu_torch.train.loop import Experiment
+    from hashgan_tpu_torch.train.state import (
+        create_encoder_state,
+        make_encoder_tx,
+    )
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="hashgan_smoke_feed_")
+    lines = []
+    try:
+        def with_train(cfg, name, **train):
+            return dataclasses.replace(cfg, train=dataclasses.replace(
+                cfg.train, workdir=os.path.join(root, name), **train))
+
+        # config1: host feed against device feed + graph, each evaluated
+        t_part = time.perf_counter()
+        c1 = get_config("config1")
+        splits1 = make_splits(c1.data)
+        parts = []
+        with given_splits(splits1):
+            for feed in ("host", "device"):
+                torch.cuda.reset_peak_memory_stats()
+                r = _feed_run(torch, with_train(
+                    c1, f"c1_{feed}", device_data=feed == "device"),
+                    P11_STEPS, P11_FIRST)
+                evaluated = _evaluated(torch, r["exp"])
+                parts.append(
+                    _feed_line(f"{feed} feed", r, P11_FIRST, P11_STEPS)
+                    + f"; {evaluated}; peak "
+                    f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+                del r
+        lines.append(f"config1 ({c1.encoder.arch} dim 64 "
+                     f"{c1.encoder.compute_dtype}, {c1.encoder.bits} bits, "
+                     f"batch {c1.train.batch_size}, {P11_STEPS} steps) "
+                     + " | ".join(parts)
+                     + f" ({time.perf_counter() - t_part:.1f} s)")
+        del splits1
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # config4's geometry: ResNet-18 on real images, 1.23 GB database
+        t_part = time.perf_counter()
+        c4 = get_config("config4")
+        c4 = dataclasses.replace(c4, train=dataclasses.replace(
+            c4.train, use_gan_samples=False))
+        d = c4.data
+        train4, tmpl = card_synthetic(torch, dev, d.n_train, d.n_classes,
+                                      d.image_size, seed=1)
+        splits4 = {"train": train4}
+        for i, (name, n) in enumerate((("query", d.n_query),
+                                       ("database", d.n_database))):
+            splits4[name] = card_synthetic(torch, dev, n, d.n_classes,
+                                           d.image_size, 2 + i, tmpl)[0]
+        del tmpl
+        runs = {}
+        torch.cuda.reset_peak_memory_stats()
+        with given_splits(splits4):
+            for feed in ("host", "device"):
+                runs[feed] = _feed_run(torch, with_train(
+                    c4, f"c4_{feed}", device_data=feed == "device"),
+                    P11_C4_STEPS, P11_C4_FIRST)
+        del runs["host"]["exp"]
+        exp4 = runs["device"].pop("exp")
+        db = splits4["database"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resident = ResidentEncoder(exp4._encode, db, batch_size=256,
+                                   device=dev)
+        torch.cuda.synchronize()
+        park_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res_codes = resident()
+        torch.cuda.synchronize()
+        res_s = time.perf_counter() - t0
+        del resident
+        t0 = time.perf_counter()
+        host_codes = encode_dataset(exp4._encode, db, batch_size=256)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        check(torch.equal(res_codes, host_codes),
+              "ResidentEncoder codes != encode_dataset's over config4's "
+              "database")
+        evaluated = _evaluated(torch, exp4, res_codes)
+        lines.append(
+            f"config4 geometry ({c4.encoder.arch} {c4.encoder.bits} bits "
+            f"{c4.encoder.compute_dtype}, {d.image_size} px, {d.n_classes} "
+            f"classes, {d.n_train} / {d.n_query} / {d.n_database} images, "
+            f"batch {c4.train.batch_size}, {P11_C4_STEPS} steps) "
+            + " | ".join(_feed_line(f"{feed} feed", r, P11_C4_FIRST,
+                                    P11_C4_STEPS) for feed, r in runs.items())
+            + f" | the {db.images.nbytes / 1e9:.3f} GB database parked in "
+            f"{park_s:.3f} s, encoded resident in {res_s:.3f} s "
+            f"({len(db) / res_s:.0f} images/s) against encode_dataset "
+            f"{host_s:.3f} s ({len(db) / host_s:.0f} images/s), codes "
+            f"bit-identical; {evaluated}; peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB with the "
+            f"train split and the database on the card "
+            f"({time.perf_counter() - t_part:.1f} s)")
+        del runs, exp4, res_codes, host_codes, splits4, train4, db
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # bit-exact: config1 with small evaluation splits
+        t_part = time.perf_counter()
+        small = dataclasses.replace(c1, data=dataclasses.replace(
+            c1.data, n_query=64, n_database=256))
+        splits_s = make_splits(small.data)
+        n = P11_EXACT
+        with given_splits(splits_s):
+            def trained(name, steps, **train):
+                exp = Experiment(with_train(small, name, **train))
+                exp.train_encoder(steps, eval_during=False)
+                return exp
+
+            every = dict(device_data=True, eval_every=100,
+                         checkpoint_every=100)
+            graphed = trained("w20", n, **{**every, "log_every": n})
+            eager = Experiment(with_train(small, "eager", **every))
+            step = GraphedEncoderStep(
+                eager.encoder_state,
+                eager._device_source(small.train.seed + 1), eager.cfg)
+            for _ in range(n):
+                step.step()
+            w5 = trained("w5", n, **{**every, "log_every": 5})
+            w1 = trained("w1", n, **{**every, "log_every": 1})
+            first = trained("resumed", 7, **{**every, "log_every": 5})
+            first.save_checkpoint()
+            resumed = Experiment(first.cfg)
+            check(resumed.restore_checkpoint(), "no checkpoint restored")
+            resumed.train_encoder(n - 7, eval_during=False)
+            host = trained("host", n)
+            # the host feed with the graph's optimiser: capturable Adam
+            host_cap = Experiment(with_train(small, "host_cap"))
+            st = host_cap.encoder_state
+            st.optimizer, st.scheduler = make_encoder_tx(
+                st.module, small.encoder, capturable=True)
+            host_cap.train_encoder(n, eval_during=False)
+            torch.cuda.synchronize()
+            want = _state_tensors(graphed)
+            for name, exp in (("eager", eager), ("window 5", w5),
+                              ("window 1", w1), ("7 + 13", resumed),
+                              ("host feed, capturable Adam", host_cap)):
+                check(exp.encoder_state.step == n and all(
+                    torch.equal(a, b) for a, b in
+                    zip(_state_tensors(exp), want)),
+                      f"config1 {name} != the graph's {n} steps")
+            rel, rel_max = _param_diffs(torch, host.encoder, graphed.encoder)
+            moved, _ = _param_diffs(torch, create_encoder_state(
+                small, dev).module, graphed.encoder)
+            check(rel <= P11_FEED_GATE,
+                  f"device feed vs host feed: relative difference {rel} "
+                  f"past {P11_FEED_GATE} (the steps moved {moved})")
+            # one step from the same weights and batch: Adam's arithmetic
+            # alone sets the two apart
+            one = [trained(f"one_{feed}", 1, device_data=feed == "device")
+                   for feed in ("host", "device")]
+            rel1, _ = _param_diffs(torch, one[0].encoder, one[1].encoder)
+            moved1, _ = _param_diffs(torch, create_encoder_state(
+                small, dev).module, one[1].encoder)
+            check(rel1 <= P11_STEP1_GATE,
+                  f"one step, device feed vs host feed: relative difference "
+                  f"{rel1} past {P11_STEP1_GATE} (the step moved {moved1})")
+        lines.append(
+            f"bit-exact after {n} config1 steps: graph replays == eager "
+            f"steps, window 5 == window 1 == window {n}, 7 + save + restore "
+            f"+ {n - 7} == {n}, == the host feed with capturable Adam "
+            f"(parameters, Adam moments, steps); the host feed with plain "
+            f"Adam against the graph: parameters {rel:.3g} apart in norm "
+            f"(gate {P11_FEED_GATE}; the {n} steps moved them {moved:.3g}), "
+            f"the largest entry {rel_max:.3g} of its tensor's largest; after "
+            f"one step {rel1:.3g} apart (gate {P11_STEP1_GATE}; the step "
+            f"moved them {moved1:.3g}) ({time.perf_counter() - t_part:.1f} "
+            "s)")
+        del graphed, eager, step, w5, w1, first, resumed, host, host_cap, one
+
+        # the 227 protocol with co-training: graph == eager
+        t_part = time.perf_counter()
+        c2 = get_config("config2")
+        s227 = dataclasses.replace(c2, encoder=dataclasses.replace(
+            c2.encoder, input_resize=227, resize_base=256))
+        s227 = with_train(s227, "s227", device_data=True)
+        train2, _ = make_synthetic(5000, c2.data.n_classes, seed=4)
+        tiny, _ = make_synthetic(64, c2.data.n_classes, seed=5)
+        splits2 = {"train": train2, "query": tiny, "database": tiny}
+        with given_splits(splits2):
+            exp = Experiment(s227)
+        src = exp._device_source(s227.train.seed + 1)
+        states = [exp.encoder_state,
+                  create_encoder_state(s227, dev, capturable=True)]
+        g = GraphedEncoderStep(states[0], src, s227, exp._sample)
+        g.run(6)
+        e = GraphedEncoderStep(states[1], src, s227, exp._sample)
+        for _ in range(6):
+            e.step()
+        torch.cuda.synchronize()
+        held = [list(st.module.state_dict().values()) + [
+            v for s in st.optimizer.state.values() for v in s.values()]
+            for st in states]
+        check(g._graph is not None and states[0].step == 6 and all(
+            torch.equal(a, b) for a, b in zip(*held)),
+              "the 227 step with co-training: graph != eager")
+        lines.append(
+            f"cifar10_step2-shaped step (AlexNet {s227.encoder.bits} bits "
+            f"{s227.encoder.compute_dtype} at 256 -> 227, "
+            f"{s227.train.batch_size} real + {g.n_fake} generated images, "
+            "dropout): 6 steps graphed == eager "
+            f"({time.perf_counter() - t_part:.1f} s)")
+        del exp, states, g, e, src
+
+        # config2's GAN: windows of 2 == windows of 1
+        t_part = time.perf_counter()
+        gans = []
+        with given_splits(splits2):
+            for log_every in (2, 1):
+                exp = Experiment(with_train(
+                    c2, f"gan{log_every}", device_data=True,
+                    log_every=log_every, sample_every=10**6,
+                    checkpoint_every=10**6))
+                exp.train_gan(4)
+                gans.append(_gan_tensors(exp.gan_state))
+                del exp
+        check(all(torch.equal(a, b) for a, b in zip(*gans)),
+              "config2 GAN: 4 cycles in windows of 2 != windows of 1")
+        lines.append(f"config2 GAN (dim {c2.gan.dim}, n_critic "
+                     f"{c2.gan.n_critic}): 4 cycles in windows of 2 == "
+                     f"windows of 1 ({time.perf_counter() - t_part:.1f} s)")
+        del gans
+
+        # config3's balanced sampler on the card
+        c3 = get_config("config3")
+        train3, _ = make_synthetic(c3.data.n_train, c3.data.n_classes,
+                                   size=4, multi_label=True, seed=6)
+        labels = train3.labels.copy()
+        labels[:500] = 0.0  # rows without a label partner themselves
+        b = c3.train.batch_size
+        half = b // 2
+        for split in (train3, SyntheticImageDataset(train3.images, labels)):
+            src = DeviceBatchSource(split, b, seed=c3.train.seed + 1,
+                                    pair_balanced=True, device=dev)
+            for s in range(20):
+                idx = src.indices(s)
+                lab = src.batch(s)[1]
+                check(torch.equal(lab.cpu(), torch.from_numpy(
+                    split.labels[idx])), "config3 device batch != its rows")
+                shared = (lab[:half] * lab[b - half:]).sum(1).cpu().numpy()
+                has = split.labels[idx[:half]].sum(1) > 0
+                check(bool((shared[has] > 0).all()) and np.array_equal(
+                    idx[b - half:][~has], idx[:half][~has]),
+                      f"config3 balanced sampler, step {s}")
+        lines.append(
+            f"config3 balanced sampler ({c3.data.n_train} rows, "
+            f"{c3.data.n_classes} concepts, batch {b}) on the card: 20 "
+            "steps, every partner shares a concept, rows without one (500 "
+            "zeroed) partner themselves")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 11 device feed ({smi}): " + " | ".join(lines)
+          + f"; phase 11 wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -2332,6 +2814,11 @@ def main() -> None:
     # with the launches of its own run, beside phase 3's
     for name, extra in cifar10_step2(torch, dev, smi).items():
         stats[name]["cifar10_step2"] = extra
+
+    # ---- phase 11: the device-resident batch feed ------------------------
+    # No TPU kernel is on the feed's path; its evaluate() runs launch K1 and
+    # K4 (checked in its own runs; the kernels line keeps phase 4's and 7's)
+    device_feed(torch, dev, smi)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     stats["pm_groupmin_scan"].update(

@@ -122,7 +122,8 @@ class TrainConfig:
     prefetch: int = 2                 # the reference's feed depth; the port
                                       # copies each batch without blocking
     epoch_shuffle: bool = False
-    device_data: bool = False         # only the host batch feed is ported
+    device_data: bool = False         # splits held on the device, graphed
+                                      # stage II (data/device_data.py)
     pair_sampling: str = "random"     # random | balanced
 
 

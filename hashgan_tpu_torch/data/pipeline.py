@@ -1,10 +1,11 @@
 """Host-side batching with deterministic, resumable sampling.
 
-Port of ``hashgan_tpu/data/pipeline.py:21-128, 183-202`` and of the host
-branch of ``hashgan_tpu/data/device_data.py::make_batch_feed``. The sampling
-is numpy, copied as it is, so the same ``(seed, step)`` gives bit-identical
+Port of ``hashgan_tpu/data/pipeline.py:21-128, 183-202``. The sampling is
+numpy, copied as it is, so the same ``(seed, step)`` gives bit-identical
 batches to the reference's: a batch is a pure function of (seed, step), and
-a resumed run replays the exact data order.
+a resumed run replays the exact data order. ``BatchIterator.indices`` gives
+a step's rows alone: the device feed (``data/device_data.py``) gathers the
+same rows from a split held on the device.
 """
 
 from __future__ import annotations
@@ -66,15 +67,15 @@ class BatchIterator:
         self._perm_cache = (epoch, perm)
         return perm
 
-    def batch(self, step: int) -> Tuple[np.ndarray, np.ndarray]:
+    def indices(self, step: int) -> np.ndarray:
+        """The (batch_size,) int64 row indices of ``step``'s batch."""
         n = len(self.dataset)
         if self.pair_balanced:
             rng = np.random.default_rng((self.seed, step, 0xBA1A))
             half = self.batch_size // 2
             anchors = rng.integers(0, n, size=self.batch_size - half)
             partners = self._partners(rng, anchors[:half])
-            idx = np.concatenate([anchors, partners])
-            return self.dataset.images[idx], self.dataset.labels[idx]
+            return np.concatenate([anchors, partners])
         if self.epoch_shuffle:
             bpe = max(1, n // self.batch_size)  # drop the ragged remainder
             epoch, pos = divmod(step, bpe)
@@ -84,9 +85,12 @@ class BatchIterator:
                 rng = np.random.default_rng((self.seed, step, 0xF111))
                 extra = rng.integers(0, n, size=self.batch_size - idx.shape[0])
                 idx = np.concatenate([idx, extra])
-        else:
-            rng = np.random.default_rng((self.seed, step))
-            idx = rng.integers(0, n, size=self.batch_size)
+            return idx
+        rng = np.random.default_rng((self.seed, step))
+        return rng.integers(0, n, size=self.batch_size)
+
+    def batch(self, step: int) -> Tuple[np.ndarray, np.ndarray]:
+        idx = self.indices(step)
         return self.dataset.images[idx], self.dataset.labels[idx]
 
     def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
@@ -128,27 +132,11 @@ def to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
-def make_batch_feed(dataset, cfg, start_step: int, seed: int,
-                    device: torch.device, n_batches: int = 1,
-                    pair_balanced: bool = False) -> Iterator:
-    """The training loop's batch feed: ``BatchIterator`` batches from
-    ``start_step`` on, as (images uint8, labels float32) tensors on
-    ``device``. With ``n_batches > 1`` (the GAN's critic batches and its
-    generator batch) a step draws ``batch_size * n_batches`` examples and
-    stacks them as (n_batches, batch_size, ...), as the reference's host
-    feed does. ``cfg.train.device_data`` (batches gathered from a split
-    held on the device) is not ported."""
-    if cfg.train.device_data:
-        raise NotImplementedError(
-            "train.device_data=True (the device-resident batch feed) is not "
-            "ported yet (ROADMAP.md)")
-    b = cfg.train.batch_size
-    it = BatchIterator(dataset, b * n_batches, seed=seed,
-                       start_step=start_step,
-                       epoch_shuffle=cfg.train.epoch_shuffle,
-                       pair_balanced=pair_balanced)
-    if n_batches > 1:
-        it = ((images.reshape((n_batches, b) + images.shape[1:]),
-               labels.reshape(n_batches, b, -1)) for images, labels in it)
-    return ((to_device(images, device), to_device(labels, device))
-            for images, labels in it)
+def __getattr__(name: str):
+    # ``make_batch_feed`` lives in data/device_data.py beside the device
+    # feed it switches to; imported lazily, as that module imports this one
+    if name == "make_batch_feed":
+        from hashgan_tpu_torch.data.device_data import make_batch_feed
+
+        return make_batch_feed
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -16,17 +16,19 @@ conv5 (two groups) -> max-pool -> fc6 -> fc7 (ReLU and dropout after each)
 - the conv5 map is flattened in NHWC order (h, w, c), as Flax flattens it,
   so fc6's weight rows keep the reference's (and bvlc_alexnet.npy's) order;
 - ``embed_norm`` is Flax's LayerNorm, epsilon 1e-6, in float32;
-- dropout acts in train mode only, and its masks come from the
-  ``generator`` passed to ``forward`` (the train step passes its per-step
-  generator, so a step stays a pure function of its inputs): one seed is
-  drawn from it, and the masks are drawn on the input's device from a
-  generator seeded with it.
+- dropout acts in train mode only. Its masks come from uniform noise
+  (``dropout_noise``): drawn on the input's device from a generator seeded
+  with one seed, which the train step draws from its per-step generator, so
+  a step stays a pure function of its inputs. The step draws the noise
+  before the forward and passes it in (``dropout=``); a CUDA graph of the
+  step reads it from static buffers filled before each replay. Given only
+  a ``generator``, ``forward`` draws the seed and the noise itself.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +38,26 @@ from torch.nn import functional as F
 from hashgan_tpu_torch.data.preprocess import resize_images
 from hashgan_tpu_torch.models.encoders import HashHead, conv, init_like_flax
 from hashgan_tpu_torch.models.layers import local_response_norm
+
+
+HIDDEN = 4096  # fc6's and fc7's width
+
+
+def draw_dropout_seed(generator: torch.Generator) -> int:
+    """The seed of a step's dropout noise, one draw from its generator."""
+    return int(torch.randint(0, 1 << 62, (), generator=generator))
+
+
+def dropout_noise(seed: int, rows: int, device: torch.device | str,
+                  out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fc6's and fc7's dropout noise for ``rows`` inputs: two (rows,
+    HIDDEN) float32 uniform draws on ``device``, in that order, from a
+    generator seeded with ``seed`` (into ``out`` where given)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = out or (None, None)
+    return tuple(torch.rand((rows, HIDDEN), device=device, generator=gen,
+                            out=o) for o in out)
 
 
 def _pool_side(n: int) -> int:
@@ -74,37 +96,43 @@ class AlexNetEncoder(nn.Module):
         self.conv3 = nn.Conv2d(256, 384, 3)
         self.conv4 = nn.Conv2d(384, 384, 3, groups=2)
         self.conv5 = nn.Conv2d(384, 256, 3, groups=2)
-        self.fc6 = nn.Linear(feature_side(image_size) ** 2 * 256, 4096)
-        self.fc7 = nn.Linear(4096, 4096)
-        self.embed_norm = nn.LayerNorm(4096, eps=1e-6)
-        self.hash = HashHead(4096, bits)
+        self.fc6 = nn.Linear(feature_side(image_size) ** 2 * 256, HIDDEN)
+        self.fc7 = nn.Linear(HIDDEN, HIDDEN)
+        self.embed_norm = nn.LayerNorm(HIDDEN, eps=1e-6)
+        self.hash = HashHead(HIDDEN, bits)
         init_like_flax(self, generator)
         self.to(device)
 
     def _dropout(self, h: torch.Tensor,
-                 masks: Optional[torch.Generator]) -> torch.Tensor:
-        if masks is None:
+                 noise: Optional[torch.Tensor]) -> torch.Tensor:
+        if noise is None:
             return h
         keep_prob = 1.0 - self.dropout_rate
-        u = torch.rand(h.shape, device=h.device, generator=masks)
-        return torch.where(u < keep_prob, h / keep_prob, torch.zeros_like(h))
+        return torch.where(noise < keep_prob, h / keep_prob,
+                           torch.zeros_like(h))
 
     def _dense(self, h: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
         dt = self.dtype
         return F.linear(h, layer.weight.to(dt), layer.bias.to(dt))
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                dropout: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> torch.Tensor:
         """(B, H, W, 3) mean-subtracted inputs -> (B, bits) float32 codes.
-        In train mode the dropout masks come from ``generator``, which is
-        then required."""
-        masks = None
+        In train mode the dropout masks come from ``dropout`` (fc6's and
+        fc7's noise, ``dropout_noise``) or, without it, from noise seeded
+        by a draw from ``generator``; one of the two is then required."""
+        noise = (None, None)
         if self.training and self.dropout_rate > 0.0:
-            if generator is None:
-                raise ValueError("AlexNet's dropout in train mode draws from "
-                                 "the step's generator: pass generator=")
-            seed = int(torch.randint(0, 1 << 62, (), generator=generator))
-            masks = torch.Generator(device=x.device).manual_seed(seed)
+            if dropout is None:
+                if generator is None:
+                    raise ValueError("AlexNet's dropout in train mode draws "
+                                     "from the step's generator: pass "
+                                     "generator= or dropout=")
+                dropout = dropout_noise(draw_dropout_seed(generator),
+                                        x.shape[0], x.device)
+            noise = dropout
         dt = self.dtype
         h = x.to(dt)
         if self.input_resize and h.shape[1] != self.input_resize:
@@ -118,8 +146,8 @@ class AlexNetEncoder(nn.Module):
             h = F.relu(conv(h, layer, dt))
         h = _maxpool(h)
         h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)  # Flax's (h, w, c)
-        h = self._dropout(F.relu(self._dense(h, self.fc6)), masks)
-        h = self._dropout(F.relu(self._dense(h, self.fc7)), masks)
+        h = self._dropout(F.relu(self._dense(h, self.fc6)), noise[0])
+        h = self._dropout(F.relu(self._dense(h, self.fc7)), noise[1])
         return self.hash(self.embed_norm(h.to(torch.float32)))
 
 

@@ -1,0 +1,193 @@
+"""Stage II's steps on a resident split as one CUDA graph a step, replayed
+through a window: the port's counterpart of the reference's fused window,
+``jax.jit(multi, donate_argnums=(0,))`` over a ``lax.scan`` of fetch and
+step (``hashgan_tpu/train/loop.py:441-471``).
+
+A step's device work is the gather of its batch from the resident split
+(``DeviceBatchSource.gather``), ``hash_step.update_step`` (augment, forward,
+loss, backward, Adam) and the sum of its metrics. It reads everything that
+changes from step to step from static device buffers, so one capture of it
+serves every step:
+
+- the batch's row indices and every ``StepDraws`` tensor, packed into one
+  byte buffer. The host draws them (``BatchIterator.indices``,
+  ``hash_step.draw_step``) into one slot of a ring of pinned staging
+  buffers and copies the slot into the buffer without blocking. A slot is
+  written again only after the event recorded behind its copy has passed,
+  so the host runs at most ``SLOTS`` steps ahead of the card;
+- AlexNet's dropout noise, drawn into its buffers before each replay by a
+  CUDA generator seeded with the step's seed (a generator seeded inside a
+  capture would replay the captured seed);
+- each parameter group's lr: the optimiser's own lr tensors, which
+  ``hash_step.advance`` fills after each replay with the schedule's float64
+  value (the schedule's arithmetic stays on the host);
+- the running sum of the metrics, read as the window's means.
+
+The optimiser must be Adam with ``capturable=True`` and tensor lrs
+(``train/state.py::make_encoder_tx``). The first ``WARMUP`` steps run
+eagerly on a side stream: they are real steps, which initialise cuBLAS,
+cuDNN and Adam's state before the capture (a capture runs nothing). A
+capture or a replay that fails raises; no step falls back to eager on the
+card. On the CPU there is no graph: the same steps run eagerly through the
+same buffers.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Optional
+
+import torch
+
+from hashgan_tpu_torch.models.alexnet import HIDDEN, dropout_noise
+from hashgan_tpu_torch.train.hash_step import (
+    StepDraws,
+    advance,
+    draw_step,
+    n_fakes,
+    update_step,
+)
+
+SLOTS = 4    # pinned staging buffers in the ring
+WARMUP = 3   # eager steps before the capture
+_ALIGN = 16  # byte alignment of each field in the packed buffer
+
+
+class GraphedEncoderStep:
+    """Stage-II steps of ``state`` on ``source``'s batches (a
+    ``DeviceBatchSource`` with ``n_batches == 1``), with G's sampler
+    ``sample`` for co-training or None. ``step()`` takes one step eagerly
+    and returns its metrics; ``run(n)`` takes ``n`` (replays of one CUDA
+    graph on the card) and returns their means. Both start at
+    ``state.step`` and advance it; the metrics are 0-dim tensors on the
+    device. Built once per (state, source, sample): a restore of the
+    optimiser's state, or another sampler, needs a new one."""
+
+    def __init__(self, state, source, cfg, sample: Optional[Callable] = None):
+        self.state, self.source, self.cfg, self.sample = (state, source, cfg,
+                                                          sample)
+        self.device = source.device
+        self.cuda = self.device.type == "cuda"
+        b = source.batch_size
+        self.n_fake = 0 if sample is None else n_fakes(cfg, b)
+        self._lrs = [g["lr"] for g in state.optimizer.param_groups]
+        if self.cuda and not all(
+                torch.is_tensor(lr) and g.get("capturable")
+                for lr, g in zip(self._lrs, state.optimizer.param_groups)):
+            raise ValueError("a CUDA graph of the step needs Adam with "
+                             "capturable=True and tensor lrs "
+                             "(make_encoder_tx(..., capturable=True))")
+        # one step's draws of this config, to lay out the packed buffer
+        like = draw_step(cfg, cfg.train.seed, 0, b, self.n_fake)
+        fields = {"idx": torch.from_numpy(source.indices(0))}
+        fields.update((k, v) for k, v in like._asdict().items()
+                      if torch.is_tensor(v))
+        self._layout, size = {}, 0
+        for name, t in fields.items():
+            self._layout[name] = (size, t.dtype, tuple(t.shape))
+            size += -(-t.numel() * t.element_size() // _ALIGN) * _ALIGN
+        self._buffer = torch.empty(size, dtype=torch.uint8, device=self.device)
+        self._static = self._views(self._buffer)
+        self._slots = [torch.empty(size, dtype=torch.uint8,
+                                   pin_memory=self.cuda)
+                       for _ in range(SLOTS if self.cuda else 1)]
+        self._slot_views = [self._views(s) for s in self._slots]
+        self._events = [None] * len(self._slots)
+        self._turn = 0
+        self._noise = None
+        if like.dropout_seed is not None:
+            rows = b + self.n_fake
+            self._noise = tuple(torch.empty(rows, HIDDEN, device=self.device)
+                                for _ in range(2))
+        self._sums = None
+        self._warm = 0
+        self._graph = None
+
+    def _views(self, buf: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return {name: buf[off:off + math.prod(shape) * dt.itemsize]
+                .view(dt).view(shape)
+                for name, (off, dt, shape) in self._layout.items()}
+
+    def _stage(self, step: int) -> None:
+        """Draw step ``step`` on the host and queue its copy into the
+        static buffers (and its dropout noise) on the current stream."""
+        b = self.source.batch_size
+        draws = draw_step(self.cfg, self.cfg.train.seed, step, b, self.n_fake)
+        turn = self._turn
+        self._turn = (turn + 1) % len(self._slots)
+        if self._events[turn] is not None:
+            self._events[turn].synchronize()
+        views = self._slot_views[turn]
+        views["idx"].copy_(torch.from_numpy(self.source.indices(step)))
+        for name, value in draws._asdict().items():
+            if name in views:
+                views[name].copy_(value)
+        self._buffer.copy_(self._slots[turn], non_blocking=self.cuda)
+        if self.cuda:
+            self._events[turn] = torch.cuda.Event()
+            self._events[turn].record()
+        if self._noise is not None:
+            dropout_noise(draws.dropout_seed, self._noise[0].shape[0],
+                          self.device, out=self._noise)
+
+    def _body(self) -> Dict[str, torch.Tensor]:
+        """The captured work: gather, ``update_step``, the metrics' sum."""
+        s = self._static
+        images, labels = self.source.gather(s["idx"])
+        draws = StepDraws(s["flip"], s.get("crop"), s.get("z"),
+                          s.get("geometry"), None)
+        metrics = update_step(self.state, images, labels, draws, self.cfg,
+                              self.sample, dropout=self._noise)
+        values = torch.stack(list(metrics.values()))
+        if self._sums is None:
+            self._keys = list(metrics)
+            self._sums = torch.zeros_like(values)
+        self._sums += values
+        return metrics
+
+    def step(self) -> Dict[str, torch.Tensor]:
+        """One step, eagerly; its metrics."""
+        self._stage(self.state.step)
+        metrics = self._body()
+        advance(self.state)
+        return metrics
+
+    def run(self, n: int) -> Dict[str, torch.Tensor]:
+        """``n`` steps; the means of their metrics."""
+        if self.cuda and any(g["lr"] is not lr for g, lr in zip(
+                self.state.optimizer.param_groups, self._lrs)):
+            raise RuntimeError("the optimiser's lr tensors were replaced "
+                               "after this step was built (a restore?): "
+                               "build a new GraphedEncoderStep")
+        if self._sums is not None:
+            self._sums.zero_()
+        done = 0
+        if not self.cuda:
+            for _ in range(n):
+                self.step()
+            return self._means(n)
+        if self._graph is None:
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                while self._warm < WARMUP and done < n:
+                    self.step()
+                    self._warm += 1
+                    done += 1
+            torch.cuda.current_stream().wait_stream(side)
+            if done == n:
+                return self._means(n)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                self._body()
+            self._graph = graph
+        for _ in range(n - done):
+            self._stage(self.state.step)
+            self._graph.replay()
+            advance(self.state)
+        return self._means(n)
+
+    def _means(self, n: int) -> Dict[str, torch.Tensor]:
+        means = self._sums / n
+        return {k: means[i] for i, k in enumerate(self._keys)}
+

@@ -2,11 +2,14 @@
 ``hashgan_tpu/train/hash_step.py``).
 
 A step is augment -> forward -> WML loss -> backward -> Adam update, all on
-the encoder's device; the uint8 batch is the only host->device traffic
-besides the flip (and crop) draws. The step's random draws come from
-``data/preprocess.py::step_generator(seed, step)``, which every encoder's
-forward also receives (AlexNet seeds its dropout masks from it), so a step
-is a pure function of its inputs and a resumed run repeats it exactly.
+the encoder's device. It comes in two halves: ``draw_step`` makes every
+random value of the step on the host, from
+``data/preprocess.py::step_generator(seed, step)`` (the flips, the crop
+offsets, z, the geometry offsets, the seed of AlexNet's dropout noise), and
+``compute_step`` runs the step on the device with those values as tensors;
+``make_encoder_train_step``'s ``step`` is the two in turn. So a step is a
+pure function of its inputs, a resumed run repeats it exactly, and a CUDA
+graph can replay the device half (``train/graph_step.py``).
 Given a generator, a step also trains on generated images (the reference's
 ``hash_step.py:66-89``): ``max(1, int(B * fake_ratio))`` fakes conditioned
 on the first labels of the batch, which they inherit. With
@@ -18,7 +21,7 @@ function the evaluation geometry, for any arch, as the reference does
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,31 +31,33 @@ from hashgan_tpu_torch.data.preprocess import (
     _on,
     alexnet_eval_geometry,
     alexnet_train_geometry,
+    crop_images,
+    flip_images,
     gan_to_encoder_input,
-    random_crop,
-    random_flip,
     step_generator,
     to_encoder_input,
 )
 from hashgan_tpu_torch.losses.pairwise import wml_pairwise_loss
+from hashgan_tpu_torch.models.alexnet import dropout_noise, draw_dropout_seed
 from hashgan_tpu_torch.train.state import EncoderState
 
 
 def encoder_loss_and_grad(encoder: nn.Module, x: torch.Tensor,
                           labels: torch.Tensor, cfg,
-                          generator: Optional[torch.Generator] = None,
                           sample_weight: Optional[torch.Tensor] = None,
+                          dropout: Optional[Tuple[torch.Tensor,
+                                                  torch.Tensor]] = None,
                           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Forward the already-augmented encoder inputs ``x`` (mean-subtracted
     float32, NHWC) in train mode, take the WML loss of ``cfg.hash_loss``
     against ``labels`` (pairs weighted by ``sample_weight``, when given),
     and backpropagate: the gradients are left in the parameters' ``.grad``
-    (set anew, not accumulated). ``generator`` is the step's, for an
-    encoder that draws (AlexNet's dropout). Returns (loss, metrics)."""
+    (set anew, not accumulated). ``dropout`` is the step's dropout noise,
+    for an encoder that drops (AlexNet). Returns (loss, metrics)."""
     hl = cfg.hash_loss
     encoder.train()
     encoder.zero_grad(set_to_none=True)
-    codes = encoder(x, generator=generator)
+    codes = encoder(x) if dropout is None else encoder(x, dropout=dropout)
     loss, metrics = wml_pairwise_loss(
         codes, labels, alpha=hl.alpha, similarity=hl.similarity,
         class_balance=hl.class_balance,
@@ -85,22 +90,126 @@ def add_fakes(x: torch.Tensor, labels: torch.Tensor, cfg,
     return (torch.cat([x, fake]), torch.cat([labels, fake_labels]), weights)
 
 
+class StepDraws(NamedTuple):
+    """Every random value of one stage-II step, in the order they are
+    drawn: the flip mask, the crop offsets (``crop_pad > 0``), z of the
+    generated images (co-training), the AlexNet geometry's crop offsets
+    (``resize_base > input_resize``) and the seed of AlexNet's dropout
+    noise. Fields a config does not draw are None."""
+
+    flip: torch.Tensor                   # (B,) bool
+    crop: Optional[torch.Tensor]         # (B,) int64
+    z: Optional[torch.Tensor]            # (n_fake, z_dim) float32
+    geometry: Optional[torch.Tensor]     # (B + n_fake,) int64
+    dropout_seed: Optional[int]
+
+
+def n_fakes(cfg, batch: int) -> int:
+    """Generated images a co-training step adds to ``batch`` real ones."""
+    return max(1, int(batch * cfg.train.fake_ratio))
+
+
+def draw_step(cfg, seed: int, step: int, batch: int, n_fake: int,
+              flip: Optional[torch.Tensor] = None,
+              crop: Optional[torch.Tensor] = None,
+              z: Optional[torch.Tensor] = None,
+              geometry: Optional[torch.Tensor] = None) -> StepDraws:
+    """The draws of step ``step`` for ``batch`` real and ``n_fake``
+    generated images (0 without co-training), on the host, from
+    ``step_generator(seed, step)``: the flip, the crop offsets, z, the
+    geometry offsets, the dropout seed, each only where the config draws
+    it. A value given here is taken as it is and not drawn, so the draws
+    after it shift, as they always have (the parity tests feed the
+    reference's)."""
+    gen = step_generator(seed, step)
+    if flip is None:
+        flip = torch.rand(batch, generator=gen) < 0.5
+    if cfg.train.crop_pad > 0 and crop is None:
+        crop = torch.randint(0, 2 * cfg.train.crop_pad + 1, (batch,),
+                             generator=gen)
+    if n_fake == 0:
+        z = None
+    elif z is None:
+        z = torch.randn(n_fake, cfg.gan.z_dim, generator=gen)
+    size = cfg.encoder.input_resize
+    base = max(cfg.encoder.resize_base, size)
+    if size > 0 and base != size and geometry is None:
+        rows = batch + (0 if z is None else z.shape[0])
+        geometry = torch.randint(0, base - size + 1, (rows,), generator=gen)
+    dropout_seed = (draw_dropout_seed(gen) if cfg.encoder.arch == "alexnet"
+                    else None)
+    return StepDraws(flip, crop, z, geometry, dropout_seed)
+
+
+def update_step(state: EncoderState, images_u8: torch.Tensor,
+                labels: torch.Tensor, draws: StepDraws, cfg,
+                sample: Optional[Callable] = None,
+                dropout: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                ) -> Dict[str, torch.Tensor]:
+    """One step's device work: augment with ``draws``, forward, WML loss,
+    backward and the optimiser's update; not the schedule, not the step
+    count (``advance``). ``draws``' tensors and ``dropout`` (AlexNet's
+    noise; drawn here from ``draws.dropout_seed`` when not given) may lie
+    on the device already, as a CUDA graph of this function has them.
+    Returns the metrics as 0-dim tensors on the device."""
+    dev = images_u8.device
+    x = flip_images(to_encoder_input(images_u8), _on(draws.flip, dev))
+    pad = cfg.train.crop_pad
+    if pad > 0:
+        r = _on(draws.crop, dev)
+        x = crop_images(x, r, r, pad)
+    weights = None
+    if sample is not None:
+        x, labels, weights = add_fakes(x, labels, cfg, sample,
+                                       _on(draws.z, dev))
+    if cfg.encoder.input_resize > 0:
+        x = alexnet_train_geometry(
+            None, x, cfg.encoder.input_resize, cfg.encoder.resize_base,
+            offsets=None if draws.geometry is None else _on(draws.geometry,
+                                                             dev))
+    if dropout is None and draws.dropout_seed is not None:
+        dropout = dropout_noise(draws.dropout_seed, x.shape[0], dev)
+    _, metrics = encoder_loss_and_grad(state.module, x, labels, cfg,
+                                       sample_weight=weights,
+                                       dropout=dropout)
+    state.optimizer.step()
+    return {k: v.detach() for k, v in metrics.items()}
+
+
+def advance(state: EncoderState) -> None:
+    """The host's half of a step: the lr schedule moves on (LambdaLR
+    computes the new lr in float64 and writes it into each group, filling
+    a group's lr tensor where it holds one) and the step count."""
+    if state.scheduler is not None:
+        state.scheduler.step()
+    state.step += 1
+
+
+def compute_step(state: EncoderState, images_u8: torch.Tensor,
+                 labels: torch.Tensor, draws: StepDraws, cfg,
+                 sample: Optional[Callable] = None
+                 ) -> Dict[str, torch.Tensor]:
+    """``update_step`` then ``advance``: one whole step with its draws
+    given."""
+    metrics = update_step(state, images_u8, labels, draws, cfg, sample)
+    advance(state)
+    return metrics
+
+
 def make_encoder_train_step(cfg) -> Callable:
     """``step(state, images_u8, labels, sample=None, flip=None, z=None,
-    crop=None, geometry=None) -> metrics``: updates ``state`` (an
-    ``EncoderState``) in place, advances ``state.step``, and returns the
-    loss metrics as 0-dim tensors on the device (reading them synchronises;
-    the loop does so at log points only). ``images_u8`` (B, H, W, C) uint8
-    and ``labels`` (B, K) float32 are tensors on the encoder's device. With
-    ``sample`` (G's sampler, see ``add_fakes``) the batch is extended by
+    crop=None, geometry=None) -> metrics``: ``compute_step(draw_step(...))``
+    at the state's step count. It updates ``state`` (an ``EncoderState``)
+    in place, advances ``state.step``, and returns the loss metrics as
+    0-dim tensors on the device (reading them synchronises; the loop does
+    so at log points only). ``images_u8`` (B, H, W, C) uint8 and ``labels``
+    (B, K) float32 are tensors on the encoder's device. With ``sample``
+    (G's sampler, see ``add_fakes``) the batch is extended by
     ``max(1, int(B * fake_ratio))`` generated images, after the flip (and
     crop) of the real ones; the AlexNet geometry (``input_resize > 0``)
     then applies to all of them. ``flip`` (B,) bool, ``crop`` (B,) and
     ``geometry`` (B + n_fake,) integer offsets and ``z`` (n_fake, z_dim)
     replace the step's own draws (the parity tests feed the reference's)."""
-    crop_pad = cfg.train.crop_pad
-    input_resize = cfg.encoder.input_resize
-    resize_base = cfg.encoder.resize_base
     seed = cfg.train.seed
 
     def step(state: EncoderState, images_u8: torch.Tensor,
@@ -110,28 +219,11 @@ def make_encoder_train_step(cfg) -> Callable:
              crop: Optional[torch.Tensor] = None,
              geometry: Optional[torch.Tensor] = None,
              ) -> Dict[str, torch.Tensor]:
-        gen = step_generator(seed, state.step)
-        x = random_flip(gen, to_encoder_input(images_u8), flip)
-        if crop_pad > 0:
-            x = random_crop(gen, x, pad=crop_pad, offsets=crop)
-        weights = None
-        if sample is not None:
-            if z is None:
-                n_fake = max(1, int(x.shape[0] * cfg.train.fake_ratio))
-                z = torch.randn(n_fake, cfg.gan.z_dim, generator=gen)
-            x, labels, weights = add_fakes(x, labels, cfg, sample,
-                                           _on(z, x.device))
-        if input_resize > 0:
-            x = alexnet_train_geometry(gen, x, input_resize, resize_base,
-                                       offsets=geometry)
-        _, metrics = encoder_loss_and_grad(state.module, x, labels, cfg,
-                                           generator=gen,
-                                           sample_weight=weights)
-        state.optimizer.step()
-        if state.scheduler is not None:
-            state.scheduler.step()
-        state.step += 1
-        return {k: v.detach() for k, v in metrics.items()}
+        b = images_u8.shape[0]
+        n_fake = 0 if sample is None else n_fakes(cfg, b)
+        draws = draw_step(cfg, seed, state.step, b, n_fake, flip=flip,
+                          crop=crop, z=z, geometry=geometry)
+        return compute_step(state, images_u8, labels, draws, cfg, sample)
 
     return step
 
@@ -169,9 +261,16 @@ def make_encode_fn(encoder: nn.Module, cfg=None) -> Callable:
 def encode_dataset(encode_fn: Callable, dataset,
                    batch_size: int = 256) -> torch.Tensor:
     """Encode a split (anything with an ``images`` (N, H, W, 3) uint8 array)
-    in order, batch by batch. Returns the (N, bits) codes on the encoder's
-    device, where the gallery is built (the reference returns numpy)."""
+    in order, batch by batch, the final batch zero-padded to
+    ``batch_size`` as the reference pads it (every batch has one shape).
+    Returns the (N, bits) codes on the encoder's device, where the gallery
+    is built (the reference returns numpy)."""
     images = dataset.images
-    out = [encode_fn(np.ascontiguousarray(images[lo:lo + batch_size]))
-           for lo in range(0, len(images), batch_size)]
-    return torch.cat(out, dim=0)
+    out = []
+    for lo in range(0, len(images), batch_size):
+        batch = images[lo:lo + batch_size]
+        if len(batch) < batch_size:
+            batch = np.concatenate([batch, np.zeros(
+                (batch_size - len(batch),) + batch.shape[1:], batch.dtype)])
+        out.append(encode_fn(np.ascontiguousarray(batch)))
+    return torch.cat(out, dim=0)[:len(images)]

@@ -3,14 +3,25 @@ trains the PC-WGAN, stage II the hash encoder on real and generated images,
 then Hamming-ranking evaluation and the index.
 
 - ``train_gan``: PC-WGAN cycles (``n_critic`` critic steps and one generator
-  step each) on the host batch feed, with the reference's log, sample-grid,
-  sample-quality and checkpoint boundaries (``:117-218``);
-- ``train_encoder``: the host-batch path of the reference (``:494-513``),
-  with its log / eval / checkpoint boundaries (``:416-427``), the
-  saturation guard, and the stage-II guard (``:279-327``): a config that
-  asks for GAN samples restores the workdir's checkpoint while the GAN has
-  never stepped, and trains on real images alone, with a warning, when
-  none holds a trained generator;
+  step each), with the reference's log, sample-grid, sample-quality and
+  checkpoint boundaries (``:117-218``);
+- ``train_encoder``: stage-II steps with the reference's log / eval /
+  checkpoint boundaries (``:416-427``), the saturation guard, and the
+  stage-II guard (``:279-327``): a config that asks for GAN samples
+  restores the workdir's checkpoint while the GAN has never stepped, and
+  trains on real images alone, with a warning, when none holds a trained
+  generator;
+- ``train.device_data``: both stages gather their batches from the train
+  split held on the device (``data/device_data.py``) in windows that end
+  on every boundary, ``gcd`` of the boundaries' periods long
+  (``:152-203, 429-492``). Stage II replays one CUDA graph a step through
+  a window (``train/graph_step.py``); stage I runs its cycles eagerly,
+  with no host sync inside a window. A full window logs the means of its
+  steps, a ragged one (a resumed run's first, a run's last) its last
+  step's metrics, as the reference does. The encode holds each split on
+  the device (``ResidentEncoder``). Batches, steps and codes are the host
+  feed's bit for bit; on the card the graph's capturable Adam rounds its
+  lr as float32;
 - ``evaluate``: encode -> pack -> Hamming kernel -> exact MAP@R and P@H<=r
   (or, past ``streaming_threshold``, tie-aware MAP from distance
   histograms), and the PR / precision@top-N curves in the workdir;
@@ -19,23 +30,27 @@ then Hamming-ranking evaluation and the index.
   for bit-exact resume, with the reference's migrations (``:778-870``) and
   its data-provenance record (``:709-735``).
 
-One device, no mesh and no device-resident batch feed: those raise, naming
-ROADMAP.md. The experiment runs on the first CUDA device unless the caller
-passes ``device="cpu"`` (as the tests do).
+One device, no mesh (ROADMAP.md). The experiment runs on the first CUDA
+device unless the caller passes ``device="cpu"`` (as the tests do).
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
+import math
 import os
 import warnings
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
-from hashgan_tpu_torch.data.pipeline import make_batch_feed
+from hashgan_tpu_torch.data.device_data import (
+    DeviceBatchSource,
+    ResidentEncoder,
+    make_batch_feed,
+)
 from hashgan_tpu_torch.data.synthetic import make_splits, synth_generation_key
 from hashgan_tpu_torch.eval.map import (
     device_map_at_r,
@@ -60,6 +75,7 @@ from hashgan_tpu_torch.train.hash_step import (
     make_encoder_train_step,
 )
 from hashgan_tpu_torch.train.gan_step import make_gan_cycle, sample_images
+from hashgan_tpu_torch.train.graph_step import GraphedEncoderStep
 from hashgan_tpu_torch.train.state import create_encoder_state, create_gan_state
 from hashgan_tpu_torch.utils.checkpoint import (
     CheckpointManager,
@@ -83,7 +99,9 @@ class Experiment:
         os.makedirs(self.workdir, exist_ok=True)
         self.logger = MetricsLogger(self.workdir)
         self.splits = make_splits(cfg.data)
-        self.encoder_state = create_encoder_state(cfg, self.device)
+        self.encoder_state = create_encoder_state(
+            cfg, self.device,
+            capturable=cfg.train.device_data and self.device.type == "cuda")
         self.encoder = self.encoder_state.module
         self._encode = make_encode_fn(self.encoder, cfg)
         self._saturation_warned = False
@@ -91,6 +109,9 @@ class Experiment:
                           else None)
         self._gan_cycle = make_gan_cycle(cfg) if cfg.use_gan else None
         self._enc_uses_gan = cfg.use_gan and cfg.train.use_gan_samples
+        self._sources: Dict[tuple, DeviceBatchSource] = {}
+        self._graphed: Optional[GraphedEncoderStep] = None
+        self._resident_encoders: Dict[str, ResidentEncoder] = {}
         self.ckpt = CheckpointManager(self.workdir)
 
     # ------------------------------------------------------------------
@@ -106,13 +127,9 @@ class Experiment:
         iters = iters if iters is not None else cfg.gan.iters
         st = self.gan_state
         means: Dict[str, float] = {}
-        batches = make_batch_feed(
-            self.splits["train"], cfg, start_step=st.step,
-            seed=cfg.train.seed, device=self.device,
-            n_batches=cfg.gan.n_critic + 1)
-        for _ in range(iters):
-            images, labels = next(batches)
-            metrics = self._gan_cycle(st, images, labels)
+
+        def boundaries(metrics):
+            nonlocal means
             step = st.step
             if step % cfg.train.log_every == 0:
                 self.logger.log(step, {k: float(v) for k, v in metrics.items()})
@@ -122,6 +139,28 @@ class Experiment:
                 self.logger.log(step, self.sample_quality())
             if step % cfg.train.checkpoint_every == 0:
                 self.save_checkpoint()
+
+        if cfg.train.device_data:
+            src = self._device_source(cfg.train.seed,
+                                      n_batches=cfg.gan.n_critic + 1)
+            window = max(1, math.gcd(math.gcd(cfg.train.log_every,
+                                              cfg.train.sample_every),
+                                     cfg.train.checkpoint_every))
+            for w in _windows(st.step, iters, window):
+                total = 0
+                for _ in range(w):
+                    metrics = self._gan_cycle(st, *src.batch(st.step))
+                    total = total + torch.stack(list(metrics.values()))
+                if w == window:
+                    metrics = dict(zip(metrics, total / w))
+                boundaries(metrics)
+            return means
+        batches = make_batch_feed(
+            self.splits["train"], cfg, start_step=st.step,
+            seed=cfg.train.seed, device=self.device,
+            n_batches=cfg.gan.n_critic + 1)
+        for _ in range(iters):
+            boundaries(self._gan_cycle(st, *next(batches)))
         return means
 
     def _sample(self, z: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -188,7 +227,7 @@ class Experiment:
                 "protocol setting); restart stage II from init.",
                 stacklevel=2)
 
-    def _stage2_guard(self) -> Tuple[bool, Callable]:
+    def _stage2_guard(self) -> Optional[Callable]:
         """The reference's refusal to co-train against an untrained
         generator (``train/loop.py:279-327``). Where GAN samples are asked
         for and the GAN has never stepped, it restores the workdir's
@@ -196,10 +235,10 @@ class Experiment:
         as in the reference); if the GAN has still never stepped, it warns
         and trains on real images only. With a trained GAN it warns when
         the last logged Wasserstein estimate (the projection-free one where
-        logged) is past 10 in magnitude. Returns (use_gan, step_fn), with
-        ``step_fn(state, images, labels)``."""
+        logged) is past 10 in magnitude. Returns G's sampler for the step
+        to co-train with, or None to train on real images only."""
         if not self._enc_uses_gan:
-            return False, self._enc_step
+            return None
         if self.gan_state.step == 0:
             self.restore_checkpoint()
             if self.gan_state.step == 0:
@@ -209,7 +248,7 @@ class Experiment:
                     "exists; training the encoder on real images only. "
                     "Run stage 1 first (or pass --resume).",
                     stacklevel=3)
-                return False, self._enc_step
+                return None
         w = self._last_logged("wasserstein_noproj")
         if w is None:
             w = self._last_logged("wasserstein")
@@ -222,11 +261,7 @@ class Experiment:
                 "iters, or lowering train.fake_ratio / setting "
                 "train.use_gan_samples=false.",
                 stacklevel=3)
-
-        def step_fn(state, images, labels):
-            return self._enc_step(state, images, labels, sample=self._sample)
-
-        return True, step_fn
+        return self._sample
 
     def _last_logged(self, key: str):
         """The last value of ``key`` in this workdir's metrics.jsonl (None
@@ -264,15 +299,11 @@ class Experiment:
                 "encoder.hash_lr_multiplier=1.0 or provide "
                 "encoder.pretrained_npy.",
                 stacklevel=2)
-        _, step_fn = self._stage2_guard()
+        sample = self._stage2_guard()
         means: Dict[str, float] = {}
-        batches = make_batch_feed(
-            self.splits["train"], cfg, start_step=state.step,
-            seed=cfg.train.seed + 1, device=self.device,
-            pair_balanced=(cfg.train.pair_sampling == "balanced"))
-        for _ in range(iters):
-            images, labels = next(batches)
-            metrics = step_fn(state, images, labels)
+
+        def boundaries(metrics):
+            nonlocal means
             step = state.step
             if step % cfg.train.log_every == 0:
                 host = {k: float(v) for k, v in metrics.items()}
@@ -284,17 +315,67 @@ class Experiment:
                 means = self.logger.flush(step)
             if step % cfg.train.checkpoint_every == 0:
                 self.save_checkpoint()
+
+        pair_balanced = cfg.train.pair_sampling == "balanced"
+        if cfg.train.device_data:
+            if self._graphed is None or self._graphed.sample != sample:
+                self._graphed = GraphedEncoderStep(
+                    state, self._device_source(cfg.train.seed + 1,
+                                               pair_balanced=pair_balanced),
+                    cfg, sample)
+            window = max(1, math.gcd(math.gcd(cfg.train.log_every,
+                                              cfg.train.eval_every),
+                                     cfg.train.checkpoint_every))
+            for w in _windows(state.step, iters, window):
+                if w == window:
+                    metrics = self._graphed.run(w)
+                else:
+                    for _ in range(w):
+                        metrics = self._graphed.step()
+                boundaries(metrics)
+            return means
+        batches = make_batch_feed(
+            self.splits["train"], cfg, start_step=state.step,
+            seed=cfg.train.seed + 1, device=self.device,
+            pair_balanced=pair_balanced)
+        for _ in range(iters):
+            images, labels = next(batches)
+            boundaries(self._enc_step(state, images, labels, sample=sample))
         return means
+
+    def _device_source(self, seed: int, n_batches: int = 1,
+                       pair_balanced: bool = False) -> DeviceBatchSource:
+        """The train split on the device, sampled from ``seed``: made at
+        its first use and kept, as the CUDA graph reads from it."""
+        key = (seed, n_batches, pair_balanced)
+        if key not in self._sources:
+            cfg = self.cfg
+            self._sources[key] = DeviceBatchSource(
+                self.splits["train"], cfg.train.batch_size, seed=seed,
+                epoch_shuffle=cfg.train.epoch_shuffle,
+                pair_balanced=pair_balanced, n_batches=n_batches,
+                device=self.device)
+        return self._sources[key]
 
     # ------------------------------------------------------------------
     # Eval / index
     # ------------------------------------------------------------------
     def encode_split(self, split: str) -> torch.Tensor:
         """(N, bits) float32 codes of a split, on the experiment's device
-        (the reference returns numpy)."""
+        (the reference returns numpy). With ``train.device_data`` the split
+        is held on the device, made at its first encode and kept, and is
+        encoded there with no copy a batch (``ResidentEncoder``); else batch
+        by batch from the host. Both give the same codes bit for bit."""
         n = len(self.splits[split])
-        return encode_dataset(self._encode, self.splits[split],
-                              batch_size=min(256, max(32, n)))
+        batch_size = min(256, max(32, n))
+        if not self.cfg.train.device_data:
+            return encode_dataset(self._encode, self.splits[split],
+                                  batch_size=batch_size)
+        if split not in self._resident_encoders:
+            self._resident_encoders[split] = ResidentEncoder(
+                self._encode, self.splits[split], batch_size=batch_size,
+                device=self.device)
+        return self._resident_encoders[split]()
 
     def build_index(self, save_path: Optional[str] = None) -> PackedGallery:
         codes = self.encode_split("database")
@@ -453,6 +534,7 @@ class Experiment:
         st.module.load_state_dict(saved["encoder"])
         _load_encoder_optimizer(st, saved["optimizer"], saved["scheduler"])
         st.step = int(saved["step"])
+        self._graphed = None  # it holds the optimiser state just replaced
         gan = saved.get("gan")
         if self.gan_state is not None and gan is not None:
             self._restore_gan(gan)
@@ -511,7 +593,24 @@ def _load_encoder_optimizer(st, opt_state: dict,
         return
     sched.load_state_dict({**sched_state, "base_lrs": list(sched.base_lrs),
                            "lr_lambdas": [None] * len(groups)})
-    for g, base, factor in zip(st.optimizer.param_groups, sched.base_lrs,
-                               sched.lr_lambdas):
-        g["lr"] = base * factor(sched.last_epoch)
-    sched._last_lr = [g["lr"] for g in st.optimizer.param_groups]
+    lrs = [base * factor(sched.last_epoch)
+           for base, factor in zip(sched.base_lrs, sched.lr_lambdas)]
+    for g, lr in zip(st.optimizer.param_groups, lrs):
+        if torch.is_tensor(g["lr"]):
+            g["lr"].fill_(lr)  # a capturable optimiser's lr stays a tensor
+        else:
+            g["lr"] = lr
+    sched._last_lr = lrs
+
+
+def _windows(start: int, iters: int, window: int):
+    """The lengths of the runs that take ``iters`` steps from step
+    ``start``, each ending on a multiple of ``window`` or at the last step
+    (the reference's schedule, ``:473-476``): a full window, or a ragged
+    run (a resumed run's first, a run's last)."""
+    done, step = 0, start
+    while done < iters:
+        w = min(window - step % window, iters - done)
+        yield w
+        done += w
+        step += w

@@ -67,17 +67,25 @@ def _linear_decay(opt: torch.optim.Optimizer, horizon: int
     return torch.optim.lr_scheduler.LambdaLR(opt, factor)
 
 
-def make_encoder_tx(module: nn.Module, cfg
+def make_encoder_tx(module: nn.Module, cfg, capturable: bool = False
                     ) -> Tuple[torch.optim.Adam,
                                Optional[torch.optim.lr_scheduler.LambdaLR]]:
     """(Adam, linear-decay schedule or None) for ``module`` under an
     ``EncoderConfig``. Call ``scheduler.step()`` after each
-    ``optimizer.step()``."""
+    ``optimizer.step()``. With ``capturable`` (a CUDA graph replays the
+    update: ``train/graph_step.py``) Adam keeps its step counts on the
+    device and each group's lr is a float32 tensor there, which the
+    schedule fills with the value it computes in float64 on the host."""
     opt = torch.optim.Adam(parameter_groups(module, cfg), lr=cfg.lr,
-                           betas=(0.9, 0.999), eps=1e-8)
-    if not cfg.decay_lr:
-        return opt, None
-    return opt, _linear_decay(opt, cfg.iters)
+                           betas=(0.9, 0.999), eps=1e-8,
+                           capturable=capturable)
+    sched = _linear_decay(opt, cfg.iters) if cfg.decay_lr else None
+    if capturable:
+        device = next(module.parameters()).device
+        for g in opt.param_groups:
+            g["lr"] = torch.tensor(g["lr"], dtype=torch.float32,
+                                   device=device)
+    return opt, sched
 
 
 def make_gan_tx(module: nn.Module, cfg, updates_per_iter: int = 1
@@ -93,12 +101,14 @@ def make_gan_tx(module: nn.Module, cfg, updates_per_iter: int = 1
     return opt, _linear_decay(opt, cfg.iters * updates_per_iter)
 
 
-def create_encoder_state(cfg, device: torch.device | str) -> EncoderState:
+def create_encoder_state(cfg, device: torch.device | str,
+                         capturable: bool = False) -> EncoderState:
     """The encoder of ``cfg`` with seeded initial weights (``cfg.train.seed``,
     drawn on the CPU so every device starts from the same weights) on
-    ``device``, and a fresh optimiser. With ``cfg.encoder.pretrained_npy``
-    the layers of a bvlc_alexnet.npy whose shapes match are loaded over the
-    initial weights, whatever the arch, as in the reference
+    ``device``, and a fresh optimiser (``capturable``: see
+    ``make_encoder_tx``). With ``cfg.encoder.pretrained_npy`` the layers of
+    a bvlc_alexnet.npy whose shapes match are loaded over the initial
+    weights, whatever the arch, as in the reference
     (``train/state.py:94-98``)."""
     module = build_encoder(
         cfg.encoder.arch, cfg.encoder.bits,
@@ -108,7 +118,7 @@ def create_encoder_state(cfg, device: torch.device | str) -> EncoderState:
     if cfg.encoder.pretrained_npy:
         module.load_state_dict(load_bvlc_weights(module.state_dict(),
                                                  cfg.encoder.pretrained_npy))
-    opt, sched = make_encoder_tx(module, cfg.encoder)
+    opt, sched = make_encoder_tx(module, cfg.encoder, capturable)
     return EncoderState(module=module, optimizer=opt, scheduler=sched)
 
 

@@ -521,3 +521,86 @@ def test_encoder_on_gpu_matches_cpu(dev, dtype, arch):
     sure = codes[0].abs() > tol
     assert sure.float().mean() > 0.5
     assert torch.equal((codes[1] > 0)[sure], (codes[0] > 0)[sure])
+
+
+def _graph_cfg(arch):
+    """config2 (co-training off) at batch 8 with a small encoder: SmallCNN
+    16 bits, or AlexNet 16 bits with dropout."""
+    import dataclasses
+
+    from hashgan_tpu_torch.configs import get_config
+
+    cfg = get_config("config2")
+    return dataclasses.replace(
+        cfg, use_gan=False,
+        data=dataclasses.replace(cfg.data, n_classes=4),
+        encoder=dataclasses.replace(cfg.encoder, arch=arch, bits=16,
+                                    decay_lr=True, iters=20),
+        train=dataclasses.replace(cfg.train, batch_size=8, crop_pad=2))
+
+
+def _graph_state(cfg, dev):
+    from hashgan_tpu_torch.train.state import create_encoder_state
+
+    return create_encoder_state(cfg, dev, capturable=True)
+
+
+@pytest.mark.parametrize("arch", ["small_cnn", "alexnet"])
+def test_graphed_steps_equal_eager_steps(dev, arch):
+    """Ten steps as one CUDA graph replayed (after the warm-up steps) and
+    ten eager steps through the same buffers, from one initial state: the
+    same parameters, Adam moments, lr and step, bit for bit."""
+    from hashgan_tpu_torch.data.device_data import DeviceBatchSource
+    from hashgan_tpu_torch.data.synthetic import make_synthetic
+    from hashgan_tpu_torch.train.graph_step import WARMUP, GraphedEncoderStep
+
+    set_numerics()
+    cfg = _graph_cfg(arch)
+    ds, _ = make_synthetic(64, 4, size=32, seed=1)
+    src = DeviceBatchSource(ds, 8, seed=2, device=dev)
+    states = [_graph_state(cfg, dev) for _ in range(2)]
+    graphed = GraphedEncoderStep(states[0], src, cfg)
+    means = graphed.run(10)
+    assert graphed._graph is not None and WARMUP < 10
+    eager = GraphedEncoderStep(states[1], src, cfg)
+    for _ in range(10):
+        eager.step()
+    torch.cuda.synchronize()
+    a, b = states
+    assert a.step == b.step == 10
+    for (name, x), y in zip(a.module.state_dict().items(),
+                            b.module.state_dict().values()):
+        assert torch.equal(x, y), name
+    for sa, sb in zip(a.optimizer.state.values(), b.optimizer.state.values()):
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(sa[key], sb[key]), key
+    assert torch.equal(a.optimizer.param_groups[0]["lr"],
+                       b.optimizer.param_groups[0]["lr"])
+    assert all(torch.isfinite(v) for v in means.values())
+
+
+def test_failed_capture_raises(dev):
+    """A step that reads a value back to the host cannot be captured: the
+    capture raises, after the warm-up's eager steps, and no step is taken
+    eagerly in its place."""
+    from hashgan_tpu_torch.data.device_data import DeviceBatchSource
+    from hashgan_tpu_torch.data.synthetic import make_synthetic
+    from hashgan_tpu_torch.train.graph_step import WARMUP, GraphedEncoderStep
+
+    set_numerics()
+    cfg = _graph_cfg("small_cnn")
+    ds, _ = make_synthetic(64, 4, size=32, seed=1)
+    src = DeviceBatchSource(ds, 8, seed=2, device=dev)
+    st = _graph_state(cfg, dev)
+    graphed = GraphedEncoderStep(st, src, cfg)
+    gather = src.gather
+
+    def syncing_gather(idx):
+        int(idx[0])  # a device -> host read: not allowed in a capture
+        return gather(idx)
+
+    src.gather = syncing_gather
+    with pytest.raises(RuntimeError):
+        graphed.run(WARMUP + 2)
+    assert st.step == WARMUP and graphed._graph is None
+    torch.cuda.synchronize()
