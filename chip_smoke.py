@@ -2,8 +2,8 @@
 every single-device search engine, config1's stage-II training and
 evaluation, the measurement path (the scan and serving benchmarks, the
 scan variants, the flagship ``entry()``, the AlexNet and ResNet encoders),
-config2's GAN stage I with co-training, the paper's cifar10_step2, and the
-device-resident batch feed.
+config2's GAN stage I with co-training, the paper's cifar10_step2, the
+device-resident batch feed, and the gallery sharded over a mesh.
 
     python3 chip_smoke.py        (from the repository root; no arguments)
 
@@ -37,8 +37,13 @@ card) on the host feed and on the device feed with stage II as one CUDA
 graph a step, timed with idle shares and evaluated, the resident encode
 against ``encode_dataset``, and the graph held bit for bit to eager
 steps, windows, a mid-window resume, a 227 co-training step and config2's
-GAN windows. Every answer is checked against plain witnesses and numpy
-oracles. Imports nothing of
+GAN windows, then the sharded gallery (phase 12): config5's gallery split
+over meshes of 2 and 4 virtual shards on the card (and of distinct cards
+where there are more), every route of ``PackedGallery.topk`` and the ring
+against the single-device gallery with one kernel launch a shard, the
+17,000,000-item gallery at meshes 4 and 2, config1's ``Experiment`` with
+the sharded encode and evaluation, and ``ServingPipeline`` over each mesh.
+Every answer is checked against plain witnesses and numpy oracles. Imports nothing of
 JAX and nothing of the JAX package ``hashgan_tpu``: the presets and the
 synthetic images come from the port.
 
@@ -2189,6 +2194,317 @@ def device_feed(torch, dev, smi: str) -> None:
           flush=True)
 
 
+def _per_shard(torch, fn, want: dict) -> tuple:
+    """Launch counts of one call of ``fn`` (counts set to 0 just before,
+    read just after); fails unless each kernel of ``want`` launched as
+    often as it says. Returns (result, counts)."""
+    from hashgan_tpu_torch.ops import _build
+
+    _build.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    for name, times in want.items():
+        check(counts[name] == times,
+              f"{name} launched {counts[name]} times, want {times}: {counts}")
+    return out, counts
+
+
+def _scan_ms(torch, pq, grouped, valids) -> float:
+    """Device ms of the K2 scans of one k = 100 call: kernel 2 over every
+    shard's grouped layout, one after another."""
+    from hashgan_tpu_torch.ops.mxu_scan import check_key_space, fullkey_scan_keys
+
+    def scans():
+        for g, v in zip(grouped, valids):
+            fullkey_scan_keys(pq, g, int(v), check_key_space(
+                32 * g.shape[0], g.shape[1] * g.shape[2]))
+
+    return device_ms(torch, scans, 3, 3)
+
+
+def sharded_gallery(torch, dev, smi: str, cfg, gallery, engine,
+                    batches) -> dict:
+    """Phase 12: the sharded gallery on the card. Meshes of 1, of 2 and 4
+    virtual shards on ``dev`` (and of up to 4 distinct cards where the
+    process sees more than one) over config5's gallery (the codes of phase
+    4, 1,048,576 x 128 bits): every route of ``PackedGallery.topk`` (k =
+    100 exact, approx and on the pm8 copies, k = 1,000 and 5,000,
+    ``repair=100`` and a fallback forced at ``repair=1``, k = 10,000 by
+    the sort engine) and ``ring_hamming_topk``, each held bit for bit to
+    the single-device gallery on 256 queries and to the numpy oracle on 2,
+    with its kernels launched once a shard (the sort engine once a shard
+    and slab); the 17,000,000-item gallery at mesh 4 (grouped shards) and
+    mesh 2 (past the shards' key space: the sort engine) against the
+    single-device slabbed gallery; config1's ``Experiment`` at a virtual
+    mesh of 4 (the sharded encode of its 54,000-image database against
+    mesh 1's, ``evaluate()`` on the same codes equal to mesh 1's and the
+    oracle); ``ServingPipeline`` over each mesh, timed. Virtual shards on
+    one card run one after another: their times measure what sharding
+    costs, not how it scales. Returns {kernel: {mesh: launches a call of
+    its route}}."""
+    import tempfile
+
+    from hashgan_tpu_torch.configs import get_config
+    from hashgan_tpu_torch.data.synthetic import make_splits
+    from hashgan_tpu_torch.index import (
+        QueryEngine,
+        ServingPipeline,
+        build_gallery,
+        build_gallery_from_packed,
+        build_gallery_from_packed_device,
+    )
+    from hashgan_tpu_torch.ops.pack import pack_codes, popcount32
+    from hashgan_tpu_torch.parallel import (
+        Mesh,
+        make_mesh,
+        ring_hamming_topk,
+        sharded_groupmin_topk,
+    )
+    from hashgan_tpu_torch.train.loop import Experiment
+
+    t_phase = time.perf_counter()
+    n, bits = gallery.n, gallery.bits
+    meshes = {"1": make_mesh(1), "2 virtual": Mesh([dev] * 2),
+              "4 virtual": Mesh([dev] * 4)}
+    if torch.cuda.device_count() > 1:
+        cards = min(4, torch.cuda.device_count())
+        meshes[f"{cards} cards"] = make_mesh(cards)
+    check(meshes["1"].devices == (dev,), f"make_mesh(1) {meshes['1']}")
+    print("phase 12 meshes: " + "; ".join(
+        f"{name}: {[str(d) for d in m.devices]}" for name, m in meshes.items())
+        + ("" if torch.cuda.device_count() > 1 else
+           "; no mesh of distinct cards (this process sees one)"), flush=True)
+
+    # phase 4's gallery codes, drawn again from their seed
+    g_codes = torch.randn(n, bits, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(1))
+    labels = gallery.labels
+    one = build_gallery(g_codes, labels, bits, mesh=meshes["1"])
+    check(not one.sharded and torch.equal(one.packed_canonical,
+                                          gallery.packed_canonical),
+          "the mesh-1 gallery is not the single-device gallery")
+    pq = pack_codes(engine.encode(batches[0]))
+    od, oi = oracle_topk(pq[:2].cpu().numpy().view(np.uint32),
+                         gallery.canonical_packed(), 10_000)
+    routes = {  # name: (topk arguments, pm8 copies, kernels a shard)
+        "k=100": ({"k": 100}, False, ("mxu_fullkey_scan", "fused_rescan")),
+        "pm8 k=100": ({"k": 100}, True, ("pm_groupmin_scan", "fused_rescan")),
+        "k=1000": ({"k": 1000}, False, ("subgroupmin_scan", "fused_rescan")),
+        "k=5000": ({"k": 5000}, False, ("subgroupmin_scan", "fused_rescan")),
+        "repair=100": ({"k": 100, "repair": 100}, False,
+                       ("groupmin_min2", "fused_rescan")),
+        "repair=1": ({"k": 100, "repair": 1}, False, ("groupmin_min2",)),
+        "k=10000": ({"k": 10_000}, False, ()),
+    }
+    wants = {name: gallery.topk(pq, **kw) for name, (kw, _, _) in
+             routes.items()}
+    per_shard = collections.defaultdict(dict)
+    lines, timing, gals = [], {}, {"1": one}
+    for label, mesh in meshes.items():
+        if mesh.size == 1:
+            continue
+        nd = mesh.size
+        t0 = time.perf_counter()
+        gal = build_gallery(g_codes, labels, bits, mesh=mesh)
+        gal8 = build_gallery(g_codes, labels, bits, mesh=mesh, build_pm8=True)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        check(gal.sharded and gal.gallery_grouped is not None
+              and gal8.gallery_grouped[4] is not None,
+              f"mesh {label}: no grouped shards or no pm8 copies")
+        slabs = -(-gal.gallery_t[0].shape[1] // (1 << 17))
+        fell_back = int(sharded_groupmin_topk(
+            mesh, pq, gal.gallery_grouped[0], gal.gallery_grouped[3],
+            gal.gallery_grouped[2], n=n, k=100, repair=1)[2].sum())
+        check(fell_back > 0, f"mesh {label}: repair=1 forced no fallback")
+        for name, (kw, pm8, kernels) in routes.items():
+            want = {kname: nd for kname in kernels}
+            if name == "k=10000":
+                want["hamming"] = nd * slabs
+            got, counts = _per_shard(
+                torch, lambda: (gal8 if pm8 else gal).topk(pq, **kw), want)
+            check(equal_lists(torch, got, wants[name]),
+                  f"mesh {label} {name} != the single-device gallery")
+            k = kw["k"]
+            check(equal_lists(torch, [t[:2] for t in got],
+                              (od[:, :k], oi[:, :k])),
+                  f"mesh {label} {name} != numpy oracle")
+            for kname in kernels:
+                per_shard[kname].setdefault(label, counts[kname])
+            if name == "k=10000":
+                per_shard["hamming"].setdefault(label, counts["hamming"])
+        (d, i), _ = _per_shard(
+            torch, lambda: gal.topk(pq, k=100, mode="approx"),
+            {"groupmin_scan": nd})
+        per_shard["groupmin_scan"].setdefault(label, nd)
+        true_d = popcount32(gallery.packed_canonical[i.long()]
+                            ^ pq[:, None, :]).sum(dim=2, dtype=torch.int32)
+        key = d.long() * n + i.long()
+        check(bool((i < n).all()) and torch.equal(true_d, d)
+              and bool((key[:, 1:] > key[:, :-1]).all()),
+            f"mesh {label} approx: not real ids at true distances in order")
+        rec = recall(i.cpu(), wants["k=100"][1].cpu())
+        check(rec >= 0.95, f"mesh {label} approx recall {rec} < 0.95")
+        ring, counts = _per_shard(
+            torch, lambda: ring_hamming_topk(mesh, pq, gal.gallery_t, k=100,
+                                             valid_n=n),
+            {"hamming": nd * nd * slabs})
+        check(equal_lists(torch, ring, wants["k=100"]),
+              f"mesh {label} ring != the single-device gallery")
+        # every shard's scan is enqueued with no host sync in between
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            gal.topk(pq, k=100)
+            gal.topk(pq, k=1000)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        timing[label] = {name: device_ms(torch, lambda kw=kw: gal.topk(
+            pq, **kw), 3, 3) for name, kw in (("k=100", {"k": 100}),
+                                              ("k=1000", {"k": 1000}))}
+        timing[label]["K2"] = _scan_ms(torch, pq, gal.gallery_grouped[0],
+                                       gal.gallery_grouped[2])
+        lines.append(
+            f"mesh {label}: built (with and without pm8 copies) in "
+            f"{build_s:.3f} s, every route == single-device gallery and "
+            f"first 2 == numpy oracle, approx recall {rec:.4f}, "
+            f"{fell_back} of {pq.shape[0]} queries fell back at repair=1, "
+            f"ring == gallery with {counts['hamming']} K4 launches; "
+            f"device ms k=100 {timing[label]['k=100']:.4f}, k=1000 "
+            f"{timing[label]['k=1000']:.4f}, of k=100 its {nd} K2 scans "
+            f"{timing[label]['K2']:.4f}")
+        gals[label] = gal
+        del gal8
+    timing["1"] = {name: device_ms(torch, lambda kw=kw: one.topk(pq, **kw),
+                                   3, 3)
+                   for name, kw in (("k=100", {"k": 100}),
+                                    ("k=1000", {"k": 1000}))}
+    timing["1"]["K2"] = _scan_ms(torch, pq, [one.gallery_grouped], [n])
+    del g_codes
+
+    # past the single-device key space: phase 4b's 17M-item gallery
+    gen = torch.Generator(device=dev).manual_seed(17)
+    words = torch.randint(-2**31, 2**31 - 1, (N_SLABBED, gallery.words),
+                          dtype=torch.int32, device=dev, generator=gen)
+    zeros = np.zeros((N_SLABBED, 1), np.float32)
+    big = build_gallery_from_packed_device(words, zeros, bits)
+    big4 = build_gallery_from_packed(words, zeros, bits,
+                                     mesh=meshes["4 virtual"])
+    big2 = build_gallery_from_packed(words, zeros, bits,
+                                     mesh=meshes["2 virtual"])
+    check(big.gallery_slabbed is not None and big4.gallery_grouped is not None
+          and big2.gallery_grouped is None,
+          "17M gallery: not slabbed on one device, grouped at mesh 4 and "
+          "sort-engine only at mesh 2")
+    want = big.topk(pq[:64], k=1000)
+    got4, _ = _per_shard(torch, lambda: big4.topk(pq[:64], k=1000),
+                         {"subgroupmin_scan": 4})
+    got2 = big2.topk(pq[:16], k=1000)
+    check(equal_lists(torch, got4, want)
+          and equal_lists(torch, got2, [t[:16] for t in want]),
+          "17M gallery over a mesh != the single-device slabbed gallery")
+    del big, big4, big2, words
+
+    # config1's Experiment over a virtual mesh of 4
+    cfg1 = get_config("config1")
+    with given_splits(make_splits(cfg1.data)), \
+            tempfile.TemporaryDirectory() as tmp:
+        exp1 = Experiment(cfg1, workdir=os.path.join(tmp, "1"),
+                          mesh=meshes["1"])
+        exp4 = Experiment(cfg1, workdir=os.path.join(tmp, "4"),
+                          mesh=meshes["4 virtual"])
+        for exp in (exp1, exp4):
+            exp.logger.plot = False
+            exp.logger.quiet = True
+        exp1.train_encoder(100, eval_during=False)
+        exp4.encoder.load_state_dict(exp1.encoder.state_dict())
+        c_q = exp1.encode_split("query")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c_db = exp1.encode_split("database")
+        torch.cuda.synchronize()
+        enc1_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        c4_db = exp4.encode_split("database")  # 54,000 >= encode_shard_min
+        torch.cuda.synchronize()
+        enc4_s = time.perf_counter() - t0
+        signs = float(((c4_db > 0) == (c_db > 0)).float().mean())
+        enc_err = float((c4_db - c_db).abs().max())
+        R, radius = cfg1.eval.R, cfg1.eval.precision_radius
+        m1 = exp1.evaluate()
+        exp4.encode_split = {"query": c_q, "database": c_db}.__getitem__
+        t0 = time.perf_counter()
+        m4, eval_counts = _per_shard(torch, exp4.evaluate, {"pack": 2})
+        eval4_s = time.perf_counter() - t0
+        check(eval_counts["hamming"] >= 4 * -(-len(c_q) // 256),
+              f"sharded evaluate launched K4 {eval_counts['hamming']} times")
+        check(m4 == m1, f"evaluate() at mesh 4 {m4} != mesh 1 {m1}")
+        o_map, o_p = oracle_eval(exp1, R, radius, c_db)
+        check(abs(m1[f"map_at_{R}"] - o_map) <= 1e-6
+              and abs(m1[f"precision_at_h{radius}"] - o_p) <= 1e-6,
+              f"evaluate() {m1} != numpy oracle ({o_map}, {o_p})")
+        # the histogram branch: every database past the threshold
+        s1 = exp1.evaluate(streaming_threshold=len(c_db) - 1)
+        s4 = exp4.evaluate(streaming_threshold=len(c_db) - 1)
+        check(s4 == s1, f"histogram evaluate() at mesh 4 {s4} != mesh 1 {s1}")
+        del exp1, exp4
+
+    # serving over each mesh: timed runs, then one counted run
+    serve, results1 = {}, None
+    for label, gal in gals.items():
+        nd = gal.mesh.size
+        pipe = ServingPipeline(QueryEngine(engine.encoder, gal, cfg=cfg),
+                               k=100, depth=2)
+        for _ in pipe.map_batches(batches[:1]):  # warm-up
+            pass
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in pipe.map_batches(batches):
+                pass
+            ts.append(time.perf_counter() - t0)
+        res, counts = _per_shard(
+            torch, lambda: list(pipe.map_batches(batches)),
+            {"pack": len(batches), "mxu_fullkey_scan": nd * len(batches)})
+        per_shard["pack"].setdefault(label, counts["pack"] // len(batches))
+        results1 = results1 or res
+        check(all(np.array_equal(a.indices, b.indices)
+                  and np.array_equal(a.distances, b.distances)
+                  for a, b in zip(res, results1)),
+              f"ServingPipeline over mesh {label} != mesh 1")
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pipe.submit(batches[0])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        pipe.drain()
+        t = statistics.median(ts)
+        serve[label] = (t / len(batches) * 1e3, len(batches) * BATCH / t)
+    del gals, one
+    print(f"phase 12 sharded gallery ({smi}; config5: {n} items x {bits} "
+          f"bits, {pq.shape[0]} image queries; virtual shards on one card "
+          "run one after another, so their times measure what sharding "
+          "costs, not how it scales): " + " | ".join(lines)
+          + f" | mesh 1 device ms k=100 {timing['1']['k=100']:.4f}, k=1000 "
+          f"{timing['1']['k=1000']:.4f}, of k=100 its K2 scan "
+          f"{timing['1']['K2']:.4f} | {N_SLABBED} items: mesh 4 "
+          "(grouped shards) top-1000 of 64 queries and mesh 2 (past the "
+          "shards' key space: the sort engine) of 16 == the single-device "
+          f"slabbed gallery | config1 at a virtual mesh of 4: the sharded "
+          f"encode of {len(c_db)} images in {enc4_s:.3f} s (mesh 1 "
+          f"{enc1_s:.3f} s), signs "
+          f"{signs:.6f} equal to mesh 1's, max |diff| {enc_err:.3g}; "
+          f"evaluate() on mesh 1's codes in {eval4_s:.3f} s == mesh 1 "
+          f"({m1}) and numpy oracle, K4 {eval_counts['hamming']} launches; "
+          f"histogram branch == mesh 1 ({s1}) | ServingPipeline k=100 "
+          f"{len(batches)} x {BATCH} images == mesh 1, median of 3 runs: "
+          + ", ".join(f"mesh {k} {v[0]:.3f} ms a batch ({v[1]:.1f} QPS)"
+                      for k, v in serve.items())
+          + f"; phase 12 wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return dict(per_shard)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -2819,10 +3135,20 @@ def main() -> None:
     # No TPU kernel is on the feed's path; its evaluate() runs launch K1 and
     # K4 (checked in its own runs; the kernels line keeps phase 4's and 7's)
     device_feed(torch, dev, smi)
+
+    # ---- phase 12: the sharded gallery ------------------------------------
+    # The sharded callers of K1-K8 on meshes of virtual shards: each
+    # route's kernels launch once a shard (checked in its own runs; the
+    # kernels line keeps the main path's counts and adds these)
+    mesh_launches = sharded_gallery(torch, dev, smi, cfg, gallery, engine,
+                                    batches)
+    for name in KERNEL_INFO:
+        stats[name]["mesh_launches"] = mesh_launches.get(name, {})
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     stats["pm_groupmin_scan"].update(
         {f"bf16_{nq}": pm8_ms[f"bf16 {nq}"] for nq in (BATCH, 4 * BATCH)})
+    print(smi, flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **stats[name],

@@ -2,11 +2,10 @@
 ``config1_cal``, ``config2_cal`` and ``config3_cal``, plus reference-style
 yaml overrides.
 
-The reference's typed config tree (``hashgan_tpu/configs/config.py``) also
-carries the mesh settings, which the port does not read yet. These
-dataclasses hold what the port reads, the GAN's settings, the real-data
-sources and the AlexNet input geometry among them, under the reference's
-field names and with its defaults, so
+These dataclasses mirror the reference's typed config tree
+(``hashgan_tpu/configs/config.py``): the GAN's settings, the real-data
+sources, the AlexNet input geometry and the mesh settings among them, under
+the reference's field names and with its defaults, so
 ``cfg.encoder.bits`` means the same in both packages and a reference
 ``Config`` may be passed wherever the port takes one. One default differs on
 purpose: ``train.workdir`` is ``/tmp/hashgan_tpu_torch``, so torch
@@ -138,6 +137,17 @@ class EvalConfig:
     precision_radius: int = 2         # P@H<=r
     pr_curve: bool = True
     streaming_threshold: int = 200_000  # larger galleries: histogram MAP
+    # smallest split whose encode is split over the mesh (below it one
+    # device encodes, so the codes do not depend on the mesh)
+    encode_shard_min: int = 50_000
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """The device mesh (``parallel/mesh.py``): its axis name and size."""
+
+    data_axis: str = "data"
+    n_devices: int = 0                # 0 = every CUDA device
 
 
 @dataclass(frozen=True)
@@ -150,6 +160,7 @@ class Config:
     train: TrainConfig = field(default_factory=TrainConfig)
     index: IndexConfig = field(default_factory=IndexConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     use_gan: bool = True              # False = encoder-only (config 1)
 
 

@@ -1,5 +1,6 @@
 """Hamming-ranking evaluation: the numpy oracle, exact device MAP@R and
-P@H<=r, and the histogram (streaming) metrics."""
+P@H<=r, the histogram (streaming) metrics, and their sharded forms over a
+mesh."""
 
 from hashgan_tpu_torch.eval.oracle import (  # noqa: F401
     average_precision_np,
@@ -17,4 +18,10 @@ from hashgan_tpu_torch.eval.streaming import (  # noqa: F401
     precision_at_radius_from_hist,
     precision_at_topn_from_hist,
     tie_aware_map,
+)
+from hashgan_tpu_torch.eval.sharded import (  # noqa: F401
+    shard_gallery_for_eval,
+    sharded_distance_histograms,
+    sharded_map_at_r,
+    sharded_precision_at_radius,
 )

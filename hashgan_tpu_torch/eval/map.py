@@ -20,6 +20,8 @@ import torch
 
 from hashgan_tpu_torch.ops.hamming import hamming_distance_t
 
+QUERY_CHUNK = 256  # queries a distance slab; the sharded MAP's chunks too
+
 
 def _chunks(packed_q: torch.Tensor, query_labels: torch.Tensor, chunk: int):
     for lo in range(0, packed_q.shape[0], chunk):
@@ -28,7 +30,8 @@ def _chunks(packed_q: torch.Tensor, query_labels: torch.Tensor, chunk: int):
 
 def device_map_at_r(packed_q: torch.Tensor, packed_g: torch.Tensor,
                     query_labels: torch.Tensor, db_labels: torch.Tensor,
-                    R: int = 1000, query_chunk: int = 256) -> torch.Tensor:
+                    R: int = 1000,
+                    query_chunk: int = QUERY_CHUNK) -> torch.Tensor:
     """MAP@R over packed codes: (Q, W) and (N, W) int32 words, 0/1 float
     labels. Returns a float32 scalar tensor on the codes' device."""
     q, w = packed_q.shape
@@ -63,7 +66,8 @@ def device_map_at_r(packed_q: torch.Tensor, packed_g: torch.Tensor,
 def device_precision_at_radius(packed_q: torch.Tensor, packed_g: torch.Tensor,
                                query_labels: torch.Tensor,
                                db_labels: torch.Tensor, radius: int = 2,
-                               query_chunk: int = 256) -> torch.Tensor:
+                               query_chunk: int = QUERY_CHUNK,
+                               ) -> torch.Tensor:
     """Mean precision of the retrievals within Hamming radius ``radius``
     (P@H<=r); a query that retrieves nothing counts 0. Float32 scalar."""
     q = packed_q.shape[0]

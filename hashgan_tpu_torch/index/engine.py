@@ -1,7 +1,9 @@
 """End-to-end query engine: images (or codes) -> ranked neighbours.
 
-Port of ``hashgan_tpu/index/engine.py`` for one device: encode -> pack ->
-top-k, and a pipelined serving loop over the same steps.
+Port of ``hashgan_tpu/index/engine.py``: encode -> pack -> top-k, and a
+pipelined serving loop over the same steps, over a gallery on one device or
+split over a mesh (``PackedGallery.mesh``). The encoder sits on the
+gallery's ``device``, the mesh's first device for a sharded gallery.
 """
 
 from __future__ import annotations
@@ -15,9 +17,14 @@ import torch
 from torch import nn
 
 from hashgan_tpu_torch.index.gallery import PackedGallery
-from hashgan_tpu_torch.ops.mxu_large_k import grouped_topk
+from hashgan_tpu_torch.ops.mxu_large_k import MAX_K, grouped_topk
 from hashgan_tpu_torch.ops.mxu_scan import check_mode
 from hashgan_tpu_torch.ops.pack import pack_codes
+from hashgan_tpu_torch.parallel.mesh import Mesh
+from hashgan_tpu_torch.parallel.sharded_scan import (
+    sharded_mxu_topk,
+    sharded_mxu_topk_large,
+)
 from hashgan_tpu_torch.train.hash_step import make_encode_fn
 
 
@@ -45,15 +52,18 @@ class QueryEngine:
     @classmethod
     def from_artifacts(cls, cfg, workdir: str, gallery_path: str,
                        device: Optional[torch.device | str] = None,
-                       ) -> "QueryEngine":
+                       mesh: Optional[Mesh] = None) -> "QueryEngine":
         """The encoder restored from ``workdir``'s latest checkpoint and the
         gallery saved at ``gallery_path``, on ``device`` (default: the first
-        CUDA device)."""
+        CUDA device), or split over ``mesh`` with the encoder on its first
+        device."""
         from hashgan_tpu_torch.train.loop import Experiment
 
-        exp = Experiment(cfg, workdir=workdir, device=device)
+        exp = Experiment(cfg, workdir=workdir, device=device, mesh=mesh,
+                         use_mesh=mesh is not None)
         exp.restore_checkpoint()
-        gallery = PackedGallery.load(gallery_path, device=exp.device)
+        gallery = PackedGallery.load(gallery_path, device=exp.device,
+                                     mesh=mesh)
         return cls(exp.encoder, gallery, cfg=cfg)
 
     def encode(self, images_u8) -> torch.Tensor:
@@ -103,9 +113,15 @@ class ServingPipeline:
     As in the reference, the top-k is the grouped layout's engine for every
     k (``grouped_topk``: ``mxu_topk`` at k <= 256, ``mxu_topk_large``
     beyond), in ``mode`` ("exact" or "approx"), on the packed words (a pm8
-    copy is not read). A gallery without a grouped layout (past
-    ``groupmin_capacity_ok``) serves through ``PackedGallery.topk``
-    instead, and is refused here.
+    copy is not read). Over a sharded gallery it is the sharded engines'
+    (``sharded_mxu_topk`` at k <= 256, reading the pm8 copies where the
+    gallery has them, ``sharded_mxu_topk_large`` beyond): encode and pack
+    on the mesh's first device, the packed queries copied to every shard,
+    the merged results back on the first device. Each batch reads the
+    gallery the engine holds at its ``submit``, so a swapped gallery
+    (``extend``, ``remove``) serves from the next batch on. A gallery
+    without a grouped layout (past ``groupmin_capacity_ok``) serves through
+    ``PackedGallery.topk`` instead, and is refused here.
 
     On a CPU gallery the same steps run synchronously (there is no stream
     to overlap with)."""
@@ -131,6 +147,14 @@ class ServingPipeline:
         enqueued on its stream with no host sync."""
         pq = pack_codes(self.engine.encode(images))
         gal = _grouped(self.engine.gallery)
+        if gal.sharded:
+            grouped, _, valids, bg, pm8 = gal.gallery_grouped
+            if self.k <= MAX_K:
+                return sharded_mxu_topk(gal.mesh, pq, grouped, bg, valids,
+                                        n=gal.n, k=self.k, mode=self.mode,
+                                        gallery_pm8=pm8)
+            return sharded_mxu_topk_large(gal.mesh, pq, grouped, bg, valids,
+                                          n=gal.n, k=self.k, mode=self.mode)
         return grouped_topk(pq, gal.gallery_grouped, gal.canon_bg,
                             valid_n=gal.n, k=self.k, mode=self.mode)
 
@@ -176,5 +200,5 @@ def _grouped(gallery: PackedGallery) -> PackedGallery:
     if gallery.gallery_grouped is None:
         raise ValueError(
             "gallery has no grouped layout (over-capacity galleries serve "
-            "through PackedGallery.topk's slab engine)")
+            "through PackedGallery.topk)")
     return gallery

@@ -39,6 +39,7 @@ from hashgan_tpu_torch.data.preprocess import (
 )
 from hashgan_tpu_torch.losses.pairwise import wml_pairwise_loss
 from hashgan_tpu_torch.models.alexnet import dropout_noise, draw_dropout_seed
+from hashgan_tpu_torch.parallel.mesh import shard_batch
 from hashgan_tpu_torch.train.state import EncoderState
 
 
@@ -258,19 +259,42 @@ def make_encode_fn(encoder: nn.Module, cfg=None) -> Callable:
     return encode
 
 
-def encode_dataset(encode_fn: Callable, dataset,
-                   batch_size: int = 256) -> torch.Tensor:
+def encode_dataset(encode_fn, dataset, batch_size: int = 256,
+                   mesh=None) -> torch.Tensor:
     """Encode a split (anything with an ``images`` (N, H, W, 3) uint8 array)
     in order, batch by batch, the final batch zero-padded to
     ``batch_size`` as the reference pads it (every batch has one shape).
     Returns the (N, bits) codes on the encoder's device, where the gallery
-    is built (the reference returns numpy)."""
+    is built (the reference returns numpy).
+
+    Under a mesh of more than one position, ``encode_fn`` is a sequence of
+    encode functions, one for each mesh position, each over the replica on
+    that position's device (``parallel.replicate``); ``batch_size`` is
+    rounded up to a multiple of the mesh size, each batch is split over the
+    mesh, every chunk is encoded on its device, and the codes are gathered
+    in order on the first device. A chunk is a smaller batch than one
+    device would take, so its codes may differ from the one-device
+    encode's by float rounding (the reference's too: partitioned matmuls
+    sum in another order); ``Experiment`` shards only from
+    ``eval.encode_shard_min`` images on."""
     images = dataset.images
+    sharded = mesh is not None and mesh.size > 1
+    if sharded:
+        if callable(encode_fn) or len(encode_fn) != mesh.size:
+            raise ValueError("under a mesh, encode_fn is one encode function "
+                             f"for each of its {mesh.size} positions")
+        batch_size = -(-batch_size // mesh.size) * mesh.size
     out = []
     for lo in range(0, len(images), batch_size):
         batch = images[lo:lo + batch_size]
         if len(batch) < batch_size:
             batch = np.concatenate([batch, np.zeros(
                 (batch_size - len(batch),) + batch.shape[1:], batch.dtype)])
-        out.append(encode_fn(np.ascontiguousarray(batch)))
+        batch = np.ascontiguousarray(batch)
+        if not sharded:
+            out.append(encode_fn(batch))
+            continue
+        chunks = [fn(part) for fn, part in
+                  zip(encode_fn, shard_batch(mesh, batch))]
+        out.extend(c.to(mesh.devices[0], non_blocking=True) for c in chunks)
     return torch.cat(out, dim=0)[:len(images)]

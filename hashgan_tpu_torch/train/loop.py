@@ -30,8 +30,18 @@ then Hamming-ranking evaluation and the index.
   for bit-exact resume, with the reference's migrations (``:778-870``) and
   its data-provenance record (``:709-735``).
 
-One device, no mesh (ROADMAP.md). The experiment runs on the first CUDA
-device unless the caller passes ``device="cpu"`` (as the tests do).
+The experiment holds a mesh (``parallel/mesh.py``): by default
+``make_mesh(cfg.mesh.n_devices)``, every CUDA device, or one of the device
+the caller passes (``device="cpu"``, as the tests do), or the caller's own
+``mesh=``; ``use_mesh=False`` holds none. Its first device is
+``self.device``. What is sharded at a mesh size above 1: the encode of a
+split of at least ``eval.encode_shard_min`` images (one replica of the
+encoder a device, refreshed at every encode), ``build_index`` and
+``evaluate`` (MAP@R and P@H<=r from ``eval/sharded.py``, or, past
+``streaming_threshold``, tie-aware MAP and the curves from the sharded
+histograms). What is not yet: training, which runs on the first device
+with a warning until data-parallel training is ported (ROADMAP.md, queue 1
+item 6b). A mesh of size 1 runs the single-device code.
 """
 
 from __future__ import annotations
@@ -56,6 +66,12 @@ from hashgan_tpu_torch.eval.map import (
     device_map_at_r,
     device_precision_at_radius,
 )
+from hashgan_tpu_torch.eval.sharded import (
+    shard_gallery_for_eval,
+    sharded_distance_histograms,
+    sharded_map_at_r,
+    sharded_precision_at_radius,
+)
 from hashgan_tpu_torch.eval.sample_quality import (
     make_template_classifier,
     sample_quality_report,
@@ -69,6 +85,7 @@ from hashgan_tpu_torch.eval.streaming import (
 )
 from hashgan_tpu_torch.index.gallery import PackedGallery, build_gallery
 from hashgan_tpu_torch.ops.pack import pack_codes
+from hashgan_tpu_torch.parallel.mesh import Mesh, make_mesh, replicate
 from hashgan_tpu_torch.train.hash_step import (
     encode_dataset,
     make_encode_fn,
@@ -89,12 +106,25 @@ from hashgan_tpu_torch.utils.logging import MetricsLogger
 
 class Experiment:
     def __init__(self, cfg, workdir: Optional[str] = None,
-                 device: Optional[torch.device | str] = None):
+                 device: Optional[torch.device | str] = None,
+                 use_mesh: bool = True, mesh: Optional[Mesh] = None):
         self._enc_step = make_encoder_train_step(cfg)
         set_numerics()
         self.cfg = cfg
-        self.device = (require_cuda() if device is None
-                       else torch.device(device))
+        if mesh is None and use_mesh:
+            mesh = (make_mesh(cfg.mesh.n_devices, cfg.mesh.data_axis)
+                    if device is None else Mesh([device], cfg.mesh.data_axis))
+        if mesh is not None:
+            if device is not None and Mesh([device]).devices[0] != \
+                    mesh.devices[0]:
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"device {mesh.devices[0]}")
+            self.device = mesh.devices[0]
+        else:
+            self.device = (require_cuda() if device is None
+                           else torch.device(device))
+        self.mesh = mesh
+        self._mesh_train_warned = False
         self.workdir = workdir or cfg.train.workdir
         os.makedirs(self.workdir, exist_ok=True)
         self.logger = MetricsLogger(self.workdir)
@@ -125,6 +155,7 @@ class Experiment:
                              "(use_gan is false)")
         cfg = self.cfg
         iters = iters if iters is not None else cfg.gan.iters
+        self._warn_mesh_training()
         st = self.gan_state
         means: Dict[str, float] = {}
 
@@ -162,6 +193,17 @@ class Experiment:
         for _ in range(iters):
             boundaries(self._gan_cycle(st, *next(batches)))
         return means
+
+    def _warn_mesh_training(self) -> None:
+        """Training is not sharded yet: at a mesh size above 1 it runs on
+        the first device, which is said once."""
+        if self._mesh_train_warned or self.mesh is None or self.mesh.size < 2:
+            return
+        self._mesh_train_warned = True
+        warnings.warn(
+            f"data-parallel training is not ported yet (ROADMAP.md, queue 1 "
+            f"item 6b): training runs on {self.device} alone; evaluation and "
+            f"the index use the mesh of {self.mesh.size}", stacklevel=3)
 
     def _sample(self, z: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         """G's images (live weights, running averages, no gradient): what
@@ -286,6 +328,7 @@ class Experiment:
         step on. Returns the means of the last flushed log."""
         cfg = self.cfg
         iters = iters if iters is not None else cfg.encoder.iters
+        self._warn_mesh_training()
         state = self.encoder_state
         if (cfg.encoder.arch == "alexnet" and not cfg.encoder.pretrained_npy
                 and cfg.encoder.hash_lr_multiplier != 1.0 and state.step == 0):
@@ -362,12 +405,22 @@ class Experiment:
     # ------------------------------------------------------------------
     def encode_split(self, split: str) -> torch.Tensor:
         """(N, bits) float32 codes of a split, on the experiment's device
-        (the reference returns numpy). With ``train.device_data`` the split
-        is held on the device, made at its first encode and kept, and is
-        encoded there with no copy a batch (``ResidentEncoder``); else batch
-        by batch from the host. Both give the same codes bit for bit."""
+        (the reference returns numpy). At a mesh size above 1 a split of at
+        least ``eval.encode_shard_min`` images is encoded over the mesh
+        (``encode_dataset(mesh=)``) by replicas of the encoder made from its
+        current parameters at this call. Otherwise, with
+        ``train.device_data`` the split is held on the device, made at its
+        first encode and kept, and is encoded there with no copy a batch
+        (``ResidentEncoder``); else batch by batch from the host. Both give
+        the same codes bit for bit."""
         n = len(self.splits[split])
         batch_size = min(256, max(32, n))
+        if (self.mesh is not None and self.mesh.size > 1
+                and n >= self.cfg.eval.encode_shard_min):
+            fns = [make_encode_fn(m, self.cfg)
+                   for m in replicate(self.mesh, self.encoder)]
+            return encode_dataset(fns, self.splits[split],
+                                  batch_size=batch_size, mesh=self.mesh)
         if not self.cfg.train.device_data:
             return encode_dataset(self._encode, self.splits[split],
                                   batch_size=batch_size)
@@ -380,7 +433,7 @@ class Experiment:
     def build_index(self, save_path: Optional[str] = None) -> PackedGallery:
         codes = self.encode_split("database")
         gal = build_gallery(codes, self.splits["database"].labels,
-                            self.cfg.encoder.bits)
+                            self.cfg.encoder.bits, mesh=self.mesh)
         if save_path:
             gal.save(save_path)
         return gal
@@ -394,7 +447,12 @@ class Experiment:
         ``streaming_threshold`` items (default
         ``cfg.eval.streaming_threshold``), tie-aware MAP from distance
         histograms beyond; P@H<=r is exact in both. The PR and
-        precision@top-N curves go to the workdir when ``cfg.eval.pr_curve``."""
+        precision@top-N curves go to the workdir when ``cfg.eval.pr_curve``.
+
+        At a mesh size above 1 the database is split over the mesh and the
+        metrics come from ``eval/sharded.py``, equal to the single-device
+        ones on the same codes; the curves of a gallery up to the threshold
+        stay single-device, as the reference's do."""
         cfg = self.cfg
         if streaming_threshold is None:
             streaming_threshold = cfg.eval.streaming_threshold
@@ -402,19 +460,34 @@ class Experiment:
         pg = pack_codes(self.encode_split("database"))
         qlab, dlab = self._labels("query"), self._labels("database")
         R, radius = cfg.eval.R, cfg.eval.precision_radius
+        mesh = self.mesh if self.mesh is not None and self.mesh.size > 1 \
+            else None
+        if mesh is not None:
+            pg_t, dlab_pad, valid_n = shard_gallery_for_eval(mesh, pg, dlab)
         if pg.shape[0] <= streaming_threshold:
-            metrics = {
-                f"map_at_{R}": float(device_map_at_r(pq, pg, qlab, dlab, R=R)),
-                f"precision_at_h{radius}": float(device_precision_at_radius(
-                    pq, pg, qlab, dlab, radius=radius)),
-            }
+            if mesh is not None:
+                m = sharded_map_at_r(mesh, pq, pg_t, qlab, dlab_pad, R=R,
+                                     valid_n=valid_n)
+                p = sharded_precision_at_radius(mesh, pq, pg_t, qlab,
+                                                dlab_pad, radius=radius,
+                                                valid_n=valid_n)
+            else:
+                m = device_map_at_r(pq, pg, qlab, dlab, R=R)
+                p = device_precision_at_radius(pq, pg, qlab, dlab,
+                                               radius=radius)
+            metrics = {f"map_at_{R}": float(m),
+                       f"precision_at_h{radius}": float(p)}
             if cfg.eval.pr_curve:
                 n_hist, r_hist = device_distance_histograms(
                     pq, pg.t().contiguous(), qlab, dlab)
                 self._dump_curves(n_hist.cpu().numpy(), r_hist.cpu().numpy())
             return metrics
-        n_hist, r_hist = device_distance_histograms(
-            pq, pg.t().contiguous(), qlab, dlab)
+        if mesh is not None:
+            n_hist, r_hist = sharded_distance_histograms(
+                mesh, pq, pg_t, qlab, dlab_pad, valid_n=valid_n)
+        else:
+            n_hist, r_hist = device_distance_histograms(
+                pq, pg.t().contiguous(), qlab, dlab)
         metrics = {
             f"map_at_{R}_tie_aware": float(tie_aware_map(n_hist, r_hist, R)),
             f"precision_at_h{radius}": float(precision_at_radius_from_hist(

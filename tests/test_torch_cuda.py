@@ -604,3 +604,53 @@ def test_failed_capture_raises(dev):
         graphed.run(WARMUP + 2)
     assert st.step == WARMUP and graphed._graph is None
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("nd", [2, 4])
+def test_virtual_mesh_gallery_equals_single_device(dev, nd):
+    """A 70,000 x 128-bit gallery split over a virtual mesh of ``nd``
+    shards on the card (at nd = 4 the last shard is padding alone, valid_n
+    = 0) answers every exact route as the single-device gallery, approx
+    with real ids at their true distances, and launches each route's
+    kernel once a shard (the sort engine's K4 once a shard and slab, the
+    ring's nd times that)."""
+    from hashgan_tpu_torch.index.gallery import build_gallery
+    from hashgan_tpu_torch.parallel import Mesh, ring_hamming_topk
+
+    n, bits = 70_000, 128
+    g = torch.Generator(device=dev).manual_seed(nd)
+    codes = torch.randn(n, bits, device=dev, generator=g)
+    labels = np.zeros((n, 1), np.float32)
+    mesh = Mesh([dev] * nd)
+    one = build_gallery(codes, labels, bits)
+    sharded = build_gallery(codes, labels, bits, mesh=mesh)
+    sharded_pm8 = build_gallery(codes, labels, bits, mesh=mesh, build_pm8=True)
+    assert sharded.sharded and sharded_pm8.gallery_grouped[4] is not None
+    q = pack_codes(torch.randn(64, bits, device=dev, generator=g))
+    runs = ((sharded, {"k": 100}, "mxu_fullkey_scan"),
+            (sharded_pm8, {"k": 100}, "pm_groupmin_scan"),
+            (sharded, {"k": 1000}, "subgroupmin_scan"),
+            (sharded, {"k": 100, "repair": 100}, "groupmin_min2"),
+            (sharded, {"k": 10_000}, "hamming"))
+    for gal, kw, kernel in runs:
+        _build.reset_launch_counts()
+        got = gal.topk(q, **kw)
+        torch.cuda.synchronize()
+        assert _build.launch_counts()[kernel] == nd, (kw, kernel)
+        want = one.topk(q, **kw)
+        w = min(got[0].shape[1], n)
+        assert all(torch.equal(a[:, :w], b[:, :w])
+                   for a, b in zip(got, want)), (kw, kernel)
+    _build.reset_launch_counts()
+    d, i = sharded.topk(q, k=100, mode="approx")
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["groupmin_scan"] == nd
+    assert (i < n).all()
+    true_d = hamming_distance_t(q, one.scan_layout())
+    assert torch.equal(torch.gather(true_d, 1, i.long()), d)
+    _build.reset_launch_counts()
+    ring = ring_hamming_topk(mesh, q, sharded.gallery_t, k=100,
+                             valid_n=n)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["hamming"] == nd * nd
+    assert all(torch.equal(a, b) for a, b in zip(ring, one.topk(q, k=100)))

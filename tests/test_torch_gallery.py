@@ -107,16 +107,17 @@ def test_extend_and_remove_match_jax_id_semantics():
 
 
 def test_unsupported_requests_raise():
-    """Only a sharded gallery (``mesh``) is refused. The routes that earlier
-    slices refused answer: k past 256 (the large-k engine) and past
-    large_k_max (the sort engine), approx mode, an explicit repair and a
-    pm8 copy, each with the numpy oracle's lists in exact mode and true
+    """Only a mesh that is not a ``parallel.Mesh`` is refused (a sharded
+    gallery is built over a Mesh: tests/test_torch_parallel.py). The routes
+    that earlier slices refused answer: k past 256 (the large-k engine) and
+    past large_k_max (the sort engine), approx mode, an explicit repair and
+    a pm8 copy, each with the numpy oracle's lists in exact mode and true
     (distance, id) pairs in approx mode."""
     codes, packed, labels = _packed(3000, 32, seed=1)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="Mesh"):
         tgal.build_gallery_from_packed(packed, labels, 32, device="cpu",
                                        mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="Mesh"):
         tgal.build_gallery(torch.from_numpy(codes), labels, 32, mesh=object())
     gal = tgal.build_gallery_from_packed(packed, labels, 32, device="cpu")
     pm8 = tgal.build_gallery(torch.from_numpy(codes), labels, 32,
