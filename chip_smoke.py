@@ -3,7 +3,8 @@ every single-device search engine, config1's stage-II training and
 evaluation, the measurement path (the scan and serving benchmarks, the
 scan variants, the flagship ``entry()``, the AlexNet and ResNet encoders),
 config2's GAN stage I with co-training, the paper's cifar10_step2, the
-device-resident batch feed, and the gallery sharded over a mesh.
+device-resident batch feed, the gallery sharded over a mesh, and
+data-parallel training over a mesh.
 
     python3 chip_smoke.py        (from the repository root; no arguments)
 
@@ -42,10 +43,16 @@ over meshes of 2 and 4 virtual shards on the card (and of distinct cards
 where there are more), every route of ``PackedGallery.topk`` and the ring
 against the single-device gallery with one kernel launch a shard, the
 17,000,000-item gallery at meshes 4 and 2, config1's ``Experiment`` with
-the sharded encode and evaluation, and ``ServingPipeline`` over each mesh.
-Every answer is checked against plain witnesses and numpy oracles. Imports nothing of
-JAX and nothing of the JAX package ``hashgan_tpu``: the presets and the
-synthetic images come from the port.
+the sharded encode and evaluation, and ``ServingPipeline`` over each mesh,
+then data-parallel training (phase 13): config2's GAN cycle and config1's
+and config4's stage-II steps at full width over virtual meshes of 2 and 4
+against mesh 1 (times, idle shares, parameter differences after 1 and 20
+steps), ``dryrun_multichip(2)`` and ``(4)`` with their engines' launches a
+shard, config1's ``Experiment`` resumed at mesh 2 bit for bit, and no host
+sync inside a sharded step. Every answer is checked against plain
+witnesses and numpy oracles. Imports nothing of JAX and nothing of the JAX
+package ``hashgan_tpu``: the presets and the synthetic images come from
+the port.
 
 Each phase prints one line (the scan benchmark also its headline JSON);
 then the card's name and power limit, the kernels as one JSON object, and
@@ -58,6 +65,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import gc
 import io
 import json
@@ -202,6 +210,13 @@ P10_GAN_CYCLES, P10_STEPS, P10_TIMED_STEPS = 20, 100, 20
 # Adam's arithmetic differs: the first run read 1.88e-7 there, against
 # the 0.0281 the step moved the parameters, and P11_STEP1_GATE is about
 # 5x that reading.
+# phase 13: steps (GAN cycles) each mesh takes from the same weights and
+# draws, the parameters compared with mesh 1's after the first and after the
+# last; steps profiled (twice: a warm-up, then the profiled call); the GAN's
+# first-cycle metrics gate, the reference's data-parallel gate
+# (tests/test_dp_equivalence.py: 2e-3 relative)
+P13_STEPS, P13_PROFILED = 20, 1
+P13_METRIC_GATE = 2e-3
 P11_STEPS, P11_FIRST = 500, 100
 P11_C4_STEPS, P11_C4_FIRST = 200, 100
 P11_EXACT = 20
@@ -350,17 +365,19 @@ def recall(got_i, want_i) -> float:
                           for a, b in zip(got_i, want_i)]))
 
 
-def kernel_breakdown(torch, fn, top: int = 5):
+def kernel_breakdown(torch, fn, top: int = 5, host: bool = True):
     """Where one call of ``fn`` spends device time: torch.profiler over a
-    second call (the first warms up), device events only. Returns (device
-    ms, [(kernel name, ms), ...] largest first)."""
+    second call (the first warms up), device events only. ``host=False``
+    traces the card alone (no host-side event per op: far less to
+    collect and sum for a call of many small ops). Returns (device ms,
+    [(kernel name, ms), ...] largest first)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * host
+                 + [ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     by_kernel = collections.Counter()
@@ -2505,6 +2522,265 @@ def sharded_gallery(torch, dev, smi: str, cfg, gallery, engine,
     return dict(per_shard)
 
 
+def _dp_series(torch, make_state, run, named, steps: int) -> dict:
+    """``steps`` steps of ``run(state)`` from ``make_state()``: the first
+    step's metrics, ``named(state)``'s tensors after the first step and
+    after the last, host and device ms a step over steps 2..steps (CUDA
+    events), and kernel ms a step (the profiler over P13_PROFILED more)."""
+    state = make_state()
+    first = {k: float(v) for k, v in run(state).items()}
+    after1 = {k: v.detach().clone() for k, v in named(state).items()}
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(steps - 1):
+        metrics = run(state)
+    end.record()
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3 / (steps - 1)
+    dev_ms = start.elapsed_time(end) / (steps - 1)
+    check(all(math.isfinite(v.item()) for v in metrics.values()),
+          f"non-finite metrics {metrics}")
+    after = {k: v.detach().clone() for k, v in named(state).items()}
+    busy, _ = kernel_breakdown(
+        torch, lambda: [run(state) for _ in range(P13_PROFILED)], host=False)
+    busy /= P13_PROFILED
+    return {"first": first, "after1": after1, "after": after, "host": host,
+            "device": dev_ms, "busy": busy,
+            "idle": max(0.0, 1 - busy / dev_ms)}
+
+
+def _max_diff(got: dict, want: dict, prefix: str = "",
+              skip: str = "") -> float:
+    """The largest entry difference over the tensors named ``prefix...``."""
+    return max(float((got[k].float() - want[k].float()).abs().max())
+               for k in want if k.startswith(prefix)
+               and not (skip and k.startswith(skip)))
+
+
+def _near_share(got: dict, want: dict, tol: float = 1e-5,
+                skip: str = "") -> float:
+    """The share of parameter entries within ``tol`` of ``want``'s."""
+    near = total = 0
+    for k in want:
+        if skip and k.startswith(skip):
+            continue
+        d = (got[k].float() - want[k].float()).abs()
+        near += int((d <= tol).sum())
+        total += d.numel()
+    return near / total
+
+
+def data_parallel_training(torch, dev, smi: str) -> dict:
+    """Phase 13: data-parallel training on the card at full width, over
+    virtual meshes of 2 and 4 positions on ``dev`` against mesh 1: config2's
+    PC-WGAN cycle (dim 128, z 128, batch 64, 32 px, n_critic 5, bf16) and
+    config1's (SmallCNN dim 64, 32 bits) and config4's (ResNet-18, 64 bits,
+    64 px) stage-II steps at batch 64, each mesh from the same seeded
+    weights, batch and draws for P13_STEPS steps: host / device / kernel
+    ms a step with the idle share, the largest parameter difference from
+    mesh 1 after the first step and after the last, the share of entries
+    within 1e-5 after the first, G's running averages; the first step's
+    metrics against mesh 1's. Then ``dryrun_multichip(2)`` and ``(4)`` on
+    virtual meshes (K2-K5 and K7 per shard), config1's ``Experiment`` at
+    mesh 2 resumed 5 + save + restore + 5 == 10 bit for bit, and one
+    sharded step and cycle under sync-debug "error" (no host sync). Virtual
+    positions on one card run one after another: the times measure what
+    the sharding costs, not how it scales. Returns {kernel: {mesh size:
+    launches a shard}} of the dryrun."""
+    from hashgan_tpu_torch.configs import get_config
+    from hashgan_tpu_torch.entry import dryrun_multichip
+    from hashgan_tpu_torch.ops import _build
+    from hashgan_tpu_torch.parallel import Mesh
+    from hashgan_tpu_torch.train.gan_step import make_gan_cycle
+    from hashgan_tpu_torch.train.hash_step import make_encoder_train_step
+    from hashgan_tpu_torch.train.loop import Experiment
+    from hashgan_tpu_torch.train.state import (
+        create_encoder_state,
+        create_gan_state,
+    )
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    meshes = {n: Mesh([dev] * n) for n in (1, 2, 4)}
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def batch(shape, n_classes):
+        images = torch.randint(0, 256, shape, device=dev, generator=gen,
+                               dtype=torch.uint8)
+        cls = torch.randint(0, n_classes, shape[:-3], device=dev,
+                            generator=gen)
+        return images, torch.nn.functional.one_hot(cls, n_classes).float()
+
+    cases = {}
+    c2 = get_config("config2")
+    gi, gl = batch((c2.gan.n_critic + 1, c2.train.batch_size,
+                    c2.data.image_size, c2.data.image_size, 3),
+                   c2.data.n_classes)
+
+    def gan_named(st):
+        out = {f"g.{k}": p for k, p in st.generator.named_parameters()}
+        out.update({f"d.{k}": p for k, p in
+                    st.discriminator.named_parameters()})
+        out.update({f"buf.{k}": b for k, b in st.generator.named_buffers()})
+        return out
+
+    cases["config2 cycle"] = (c2, lambda: create_gan_state(c2, dev),
+                              lambda n: make_gan_cycle(c2, meshes[n]),
+                              lambda f, st: f(st, gi, gl), gan_named,
+                              c2.gan.lr, "g.")
+    for name in ("config1", "config4"):
+        c = get_config(name)
+        d = c.data
+        images, labels = batch((c.train.batch_size, d.image_size,
+                                d.image_size, 3), d.n_classes)
+        cases[f"{name} step"] = (
+            c, functools.partial(create_encoder_state, c, dev),
+            functools.partial(lambda c, n: make_encoder_train_step(
+                c, meshes[n]), c),
+            functools.partial(lambda x, y, f, st: f(st, x, y), images,
+                              labels),
+            lambda st: dict(st.module.named_parameters()),
+            c.encoder.lr * c.encoder.hash_lr_multiplier, "")
+    lines, steppers, walls = [], {}, {}
+    for case, (c, make_state, make_step, call, named, lr,
+               one_update) in cases.items():
+        t0 = time.perf_counter()
+        runs = {}
+        for n in meshes:
+            f = make_step(n)
+            steppers[(case, n)] = (make_state, f, call)
+            runs[n] = _dp_series(torch, make_state, lambda st: call(f, st),
+                                 named, P13_STEPS)
+        one = runs[1]
+        parts = [f"mesh 1 {one['host']:.3f} host / {one['device']:.3f} "
+                 f"device / {one['busy']:.3f} kernel ms a step, idle "
+                 f"{one['idle']:.3f}"]
+        for n in (2, 4):
+            r = runs[n]
+            for k, v in one["first"].items():
+                if k == "bit_balance":
+                    # the mean of the codes' signs: each code within
+                    # rounding of 0 may flip, moving it by 2 / (B * bits)
+                    continue
+                check(abs(r["first"][k] - v) <= P13_METRIC_GATE * max(
+                    1.0, abs(v)), f"{case} mesh {n} step 1 {k} "
+                    f"{r['first'][k]} != mesh 1 {v}")
+            d1 = _max_diff(r["after1"], one["after1"], skip="buf.")
+            dn = _max_diff(r["after"], one["after"], skip="buf.")
+            share = _near_share(r["after1"], one["after1"], skip="buf.")
+            # the parameters that take one Adam update a step (G's: D takes
+            # n_critic a cycle) move at most 2 lr from mesh 1's
+            d_one = _max_diff(r["after1"], one["after1"], one_update,
+                              skip="buf.")
+            check(d_one <= 2 * lr + 1e-6, f"{case} mesh {n}: a parameter "
+                  f"moved {d_one} from mesh 1's in one step, past 2 lr")
+            text = (f"mesh {n} {r['host']:.3f} / {r['device']:.3f} / "
+                    f"{r['busy']:.3f} ms, idle {r['idle']:.3f} "
+                    f"({r['device'] / one['device']:.2f}x mesh 1's device "
+                    f"ms); max |param - mesh 1| after 1 step {d1:.3g} "
+                    f"({share:.6f} of entries within 1e-5), after "
+                    f"{P13_STEPS} {dn:.3g}")
+            if case.startswith("config2"):
+                text += (f"; G's running averages max |diff| after 1 "
+                         f"{_max_diff(r['after1'], one['after1'], 'buf.'):.3g}"
+                         f", after {P13_STEPS} "
+                         f"{_max_diff(r['after'], one['after'], 'buf.'):.3g}")
+            parts.append(text)
+        lines.append(f"{case}: " + "; ".join(parts))
+        del runs
+        gc.collect()
+        walls[case] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # no host sync inside a sharded step or cycle (their first calls ran)
+    for case in ("config1 step", "config2 cycle"):
+        make_state, f, call = steppers[(case, 2)]
+        st = make_state()
+        call(f, st)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            call(f, st)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+    # dryrun_multichip on virtual meshes: its engines launch per shard
+    walls["sync check"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dry = {}
+    for n in (2, 4):
+        _build.reset_launch_counts()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            dryrun_multichip(n, [dev] * n)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        check(f"dryrun_multichip({n}): ok" in out.getvalue(),
+              f"dryrun_multichip({n}) printed {out.getvalue()!r}")
+        for k in ("mxu_fullkey_scan", "fused_rescan", "hamming",
+                  "subgroupmin_scan", "groupmin_min2"):
+            check(counts[k] >= n and counts[k] % n == 0,
+                  f"dryrun_multichip({n}) launched {k} {counts[k]} times")
+        dry[n] = {k: v // n for k, v in counts.items() if v}
+    walls["dryrun"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # config1's Experiment at mesh 2: 5 + save + restore + 5 == 10
+    c1 = get_config("config1")
+    root = tempfile.mkdtemp(prefix="hashgan_smoke_dp_")
+    try:
+        c1 = dataclasses.replace(c1, train=dataclasses.replace(
+            c1.train, log_every=5, checkpoint_every=10**6,
+            eval_every=10**6))
+        train, _ = card_synthetic(torch, dev, c1.data.n_train,
+                                  c1.data.n_classes, c1.data.image_size, 131)
+        small, _ = card_synthetic(torch, dev, 64, c1.data.n_classes,
+                                  c1.data.image_size, 132)
+        splits = {"train": train, "query": small, "database": small}
+        with given_splits(splits):
+            exps = [Experiment(c1, workdir=os.path.join(root, w),
+                               mesh=meshes[2]) for w in ("a", "b")]
+            for e in exps:
+                e.logger.plot = False
+            exps[0].train_encoder(10, eval_during=False)
+            exps[1].train_encoder(5, eval_during=False)
+            exps[1].save_checkpoint()
+            resumed = Experiment(c1, workdir=os.path.join(root, "b"),
+                                 mesh=meshes[2])
+            resumed.logger.plot = False
+            check(resumed.restore_checkpoint(), "no checkpoint to restore")
+            resumed.train_encoder(5, eval_during=False)
+        a, b = exps[0].encoder_state, resumed.encoder_state
+        check(a.step == b.step == 10 and all(
+            torch.equal(x, y) for x, y in zip(a.module.parameters(),
+                                              b.module.parameters())),
+              "config1 at mesh 2: 5 + restore + 5 != 10 straight steps")
+        sa, sb = a.optimizer.state_dict(), b.optimizer.state_dict()
+        check(all(torch.equal(sa["state"][i][k], sb["state"][i][k])
+                  for i in sa["state"] for k in ("exp_avg", "exp_avg_sq")),
+              "config1 at mesh 2: the resumed Adam state differs")
+        del exps, resumed, a, b
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    walls["resume"] = time.perf_counter() - t0
+    print(f"phase 13 data-parallel training ({smi}; virtual meshes on one "
+          "card run their positions one after another, so the times "
+          "measure what the sharding costs, not how it scales): "
+          + " | ".join(lines)
+          + f" | no host sync in a mesh-2 step or cycle (sync-debug error)"
+          f" | dryrun_multichip(2), (4) ok, launches a shard: "
+          + "; ".join(f"mesh {n} {v}" for n, v in dry.items())
+          + " | config1 Experiment at mesh 2: 5 + save + restore + 5 == 10 "
+          f"bit for bit; phase 13 wall {time.perf_counter() - t_phase:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()) + ")",
+          flush=True)
+    return dry
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -3144,6 +3420,15 @@ def main() -> None:
                                     batches)
     for name in KERNEL_INFO:
         stats[name]["mesh_launches"] = mesh_launches.get(name, {})
+
+    # ---- phase 13: data-parallel training ---------------------------------
+    # Both stages over virtual meshes at full width; dryrun_multichip's
+    # engines launch K2-K5 and K7 once a shard (its own counted runs; the
+    # kernels line adds them beside mesh_launches)
+    dry = data_parallel_training(torch, dev, smi)
+    for name in KERNEL_INFO:
+        stats[name]["dryrun_launches"] = {
+            str(n): v[name] for n, v in dry.items() if name in v}
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     stats["pm_groupmin_scan"].update(

@@ -24,12 +24,24 @@ jit, and has no counterpart here.
 
 from __future__ import annotations
 
-from typing import Callable, Iterator, Tuple
+from typing import Callable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
 from hashgan_tpu_torch.data.pipeline import BatchIterator, to_device
+from hashgan_tpu_torch.parallel.mesh import Mesh
+
+
+def _chunks(idx: np.ndarray, n_batches: int, n: int) -> list:
+    """A step's rows split by position: the batch (or each batch of the
+    stack) cut into ``n`` contiguous chunks; refused where ``n`` does not
+    divide the batch, as ``shard_batch``."""
+    b = idx.shape[0] // n_batches
+    if b % n:
+        raise ValueError(f"batch {b} is not divisible by the mesh size {n}")
+    return [part.reshape(-1) for part in
+            np.split(idx.reshape(n_batches, b), n, axis=1)]
 
 
 class DeviceBatchSource:
@@ -38,42 +50,60 @@ class DeviceBatchSource:
     (the GAN's critic batches and its generator batch) ((n_batches, B, H,
     W, C), (n_batches, B, K)), drawn as one batch of ``B * n_batches``
     examples, as the host feed draws them. ``batch(step)`` is a function of
-    (seed, step); ``iter(s)`` yields ``batch(s)``, ``batch(s + 1)``, ..."""
+    (seed, step); ``iter(s)`` yields ``batch(s)``, ``batch(s + 1)``, ...
+
+    With a ``mesh`` of more than one position the split is held on each of
+    its distinct devices, and ``batch(step)`` is a tuple of one (images,
+    labels) a position, (B / n, ...) or (n_batches, B / n, ...), gathered
+    on the position's device; ``device`` is then the mesh's first."""
 
     def __init__(self, dataset, batch_size: int, seed: int = 0,
                  epoch_shuffle: bool = False, pair_balanced: bool = False,
-                 n_batches: int = 1, device: torch.device | str = "cpu"):
+                 n_batches: int = 1, device: torch.device | str = "cpu",
+                 mesh: Optional[Mesh] = None):
         if pair_balanced and n_batches != 1:
             # balance is a contract of the encoder's pair loss; the GAN's
             # stacked batches take the plain samplers (as the reference)
             raise ValueError("pair_balanced requires n_batches == 1")
         self.batch_size = batch_size
         self.n_batches = n_batches
-        self.device = torch.device(device)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if self.mesh is not None and batch_size % self.mesh.size:
+            raise ValueError(f"batch {batch_size} is not divisible by the "
+                             f"mesh size {self.mesh.size}")
+        self.device = (torch.device(device) if mesh is None
+                       else mesh.devices[0])
         self.sampler = BatchIterator(
             dataset, batch_size * n_batches, seed=seed,
             epoch_shuffle=epoch_shuffle, pair_balanced=pair_balanced)
-        self.images = torch.from_numpy(
-            np.ascontiguousarray(dataset.images)).to(self.device)
-        self.labels = torch.from_numpy(
-            np.ascontiguousarray(dataset.labels)).to(self.device)
+        images = torch.from_numpy(np.ascontiguousarray(dataset.images))
+        labels = torch.from_numpy(np.ascontiguousarray(dataset.labels))
+        self._resident = {d: (images.to(d), labels.to(d)) for d in (
+            (self.device,) if self.mesh is None else self.mesh.devices)}
+        self.images, self.labels = self._resident[self.device]
 
     def indices(self, step: int) -> np.ndarray:
         """The (B * n_batches,) int64 rows of ``step``'s batch."""
         return self.sampler.indices(step)
 
     def gather(self, idx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The batch of rows ``idx``, an int64 tensor on the device."""
-        images = self.images.index_select(0, idx)
-        labels = self.labels.index_select(0, idx)
+        """The batch of rows ``idx``, an int64 tensor on a device that holds
+        the split (the first, or a mesh position's)."""
+        images, labels = self._resident[idx.device]
+        images = images.index_select(0, idx)
+        labels = labels.index_select(0, idx)
         if self.n_batches > 1:
-            images = images.view((self.n_batches, self.batch_size)
-                                 + images.shape[1:])
-            labels = labels.view(self.n_batches, self.batch_size, -1)
+            b = idx.shape[0] // self.n_batches
+            images = images.view((self.n_batches, b) + images.shape[1:])
+            labels = labels.view(self.n_batches, b, -1)
         return images, labels
 
-    def batch(self, step: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        return self.gather(to_device(self.indices(step), self.device))
+    def batch(self, step: int):
+        idx = self.indices(step)
+        if self.mesh is None:
+            return self.gather(to_device(idx, self.device))
+        return tuple(self.gather(to_device(part, d)) for part, d in zip(
+            _chunks(idx, self.n_batches, self.mesh.size), self.mesh.devices))
 
     def iter(self, start_step: int = 0) -> Iterator[Tuple[torch.Tensor,
                                                           torch.Tensor]]:
@@ -114,7 +144,8 @@ class ResidentEncoder:
 
 def make_batch_feed(dataset, cfg, start_step: int, seed: int,
                     device: torch.device, n_batches: int = 1,
-                    pair_balanced: bool = False) -> Iterator:
+                    pair_balanced: bool = False,
+                    mesh: Optional[Mesh] = None) -> Iterator:
     """The training loops' batch feed from ``start_step`` on: (images
     uint8, labels) tensors on ``device``, (B, ...), or with ``n_batches >
     1`` (the GAN's ``n_critic`` critic batches and its generator batch)
@@ -125,13 +156,19 @@ def make_batch_feed(dataset, cfg, start_step: int, seed: int,
     stack, which that source refuses (the reference's switch, ``:251``).
     Otherwise ``BatchIterator`` draws and gathers on the host, and each
     batch is copied to ``device`` without blocking. Both feeds give the
-    same batches bit for bit."""
+    same batches bit for bit. With a ``mesh`` of more than one position
+    each batch is a tuple of one (images, labels) a position, on its device
+    (see ``DeviceBatchSource``)."""
     b = cfg.train.batch_size
     if cfg.train.device_data and not (pair_balanced and n_batches != 1):
         return DeviceBatchSource(
             dataset, b, seed=seed, epoch_shuffle=cfg.train.epoch_shuffle,
             pair_balanced=pair_balanced, n_batches=n_batches,
-            device=device).iter(start_step)
+            device=device, mesh=mesh).iter(start_step)
+    mesh = mesh if mesh is not None and mesh.size > 1 else None
+    if mesh is not None and b % mesh.size:
+        raise ValueError(f"batch {b} is not divisible by the mesh size "
+                         f"{mesh.size}")
     it = BatchIterator(dataset, b * n_batches, seed=seed,
                        start_step=start_step,
                        epoch_shuffle=cfg.train.epoch_shuffle,
@@ -139,5 +176,12 @@ def make_batch_feed(dataset, cfg, start_step: int, seed: int,
     if n_batches > 1:
         it = ((images.reshape((n_batches, b) + images.shape[1:]),
                labels.reshape(n_batches, b, -1)) for images, labels in it)
-    return ((to_device(images, device), to_device(labels, device))
-            for images, labels in it)
+    if mesh is None:
+        return ((to_device(images, device), to_device(labels, device))
+                for images, labels in it)
+    dim = 0 if n_batches == 1 else 1
+    return (tuple(
+        (to_device(i, d), to_device(y, d)) for i, y, d in zip(
+            np.split(images, mesh.size, axis=dim),
+            np.split(labels, mesh.size, axis=dim), mesh.devices))
+        for images, labels in it)

@@ -22,7 +22,7 @@ projection heads. Parameters carry over from Flax with
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -32,6 +32,8 @@ from hashgan_tpu_torch.models.encoders import conv, init_like_flax
 from hashgan_tpu_torch.models.layers import (
     BatchNorm,
     CondBatchNorm,
+    batch_norm_shards,
+    cond_batch_norm_shards,
     layer_norm_channels,
 )
 
@@ -71,15 +73,30 @@ class GenResBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, labels: torch.Tensor, train: bool,
                 update: bool) -> torch.Tensor:
-        dt = self.dtype
-        h = F.relu(self.bn1(x, labels, train, update))
-        h = conv(upsample2x(h), self.conv1, dt)
-        h = F.relu(self.bn2(h, labels, train, update))
-        h = conv(h, self.conv2, dt)
+        return res_block_shards([self], [x], [labels], train, update)[0]
+
+    def skip_path(self, x: torch.Tensor) -> torch.Tensor:
         skip = upsample2x(x)
-        if self.skip is not None:
-            skip = conv(skip, self.skip, dt)
-        return h + skip
+        return skip if self.skip is None else conv(skip, self.skip,
+                                                   self.dtype)
+
+
+def res_block_shards(blocks: Sequence[GenResBlock],
+                     xs: Sequence[torch.Tensor],
+                     labels: Sequence[torch.Tensor], train: bool,
+                     update: bool) -> List[torch.Tensor]:
+    """``GenResBlock`` in lock-step over per-position shards: ``blocks``
+    are one block's replicas, one a mesh position; each batch norm takes
+    the global batch's statistics (``cond_batch_norm_shards``)."""
+    dt = blocks[0].dtype
+    hs = cond_batch_norm_shards([b.bn1 for b in blocks], xs, labels, train,
+                                update)
+    hs = [conv(upsample2x(F.relu(h)), b.conv1, dt)
+          for b, h in zip(blocks, hs)]
+    hs = cond_batch_norm_shards([b.bn2 for b in blocks], hs, labels, train,
+                                update)
+    return [conv(F.relu(h), b.conv2, dt) + b.skip_path(x)
+            for b, h, x in zip(blocks, hs, xs)]
 
 
 class Generator(nn.Module):
@@ -119,22 +136,48 @@ class Generator(nn.Module):
 
     def forward(self, z: torch.Tensor, labels: torch.Tensor,
                 train: bool = True, update: bool = True) -> torch.Tensor:
-        dt = self.dtype
+        return generator_shards([self], [z], [labels], train, update)[0]
+
+    def labels_in(self, labels: torch.Tensor) -> torch.Tensor:
         labels = labels.float()
         if self.cond_label_norm:
             labels = labels / labels.sum(dim=-1, keepdim=True).clamp_min(1.0)
+        return labels
+
+    def stem(self, z: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """z and the label embedding -> the dense layer's (N, C, 4, 4)
+        map."""
         z = z.float()
         if self.label_embed is not None:
             z = torch.cat([z, self.label_embed(labels)], dim=-1)
         # the dense output is read as (4, 4, C), channels last, as Flax's
         # reshape reads it; only then to NCHW
-        x = _dense(z, self.input, dt).view(-1, 4, 4, self.width0)
-        x = x.permute(0, 3, 1, 2)
-        for block in self.blocks:
-            x = block(x, labels, train, update)
-        x = F.relu(self.out_bn(x, train, update))
-        x = conv(x, self.out_conv, dt)
+        x = _dense(z, self.input, self.dtype).view(-1, 4, 4, self.width0)
+        return x.permute(0, 3, 1, 2)
+
+    def head(self, h: torch.Tensor) -> torch.Tensor:
+        """The output batch norm's result -> (N, H, W, C) images."""
+        x = conv(F.relu(h), self.out_conv, self.dtype)
         return torch.tanh(x.float()).permute(0, 2, 3, 1)
+
+
+def generator_shards(gens: Sequence[Generator], zs: Sequence[torch.Tensor],
+                     labels: Sequence[torch.Tensor], train: bool = True,
+                     update: bool = True) -> List[torch.Tensor]:
+    """G in lock-step over per-position shards of one global batch:
+    ``gens`` are G's replicas, one a mesh position (``gens[0]`` the master),
+    ``zs`` and ``labels`` each position's rows. Layer by layer every shard
+    runs on its replica; at each batch norm the shards' statistics are
+    reduced to the global batch's (``models/layers.py::batch_norm_shards``),
+    and with ``update`` the master's running averages move once. One shard
+    is ``Generator.forward``. Returns each position's images."""
+    labels = [g.labels_in(y) for g, y in zip(gens, labels)]
+    xs = [g.stem(z, y) for g, z, y in zip(gens, zs, labels)]
+    for i in range(len(gens[0].blocks)):
+        xs = res_block_shards([g.blocks[i] for g in gens], xs, labels, train,
+                              update)
+    hs = batch_norm_shards([g.out_bn for g in gens], xs, train, update)
+    return [g.head(h) for g, h in zip(gens, hs)]
 
 
 class DiscResBlock(nn.Module):

@@ -1,11 +1,15 @@
 """Shared layers (port of ``hashgan_tpu/models/layers.py``): AlexNet's
 LRN, and the GAN's normalisations with Flax's numerics (the batch norm of
 ``flax.linen.BatchNorm``, the conditional batch norm, and Flax's
-``LayerNorm`` over channels)."""
+``LayerNorm`` over channels). ``batch_norm_shards`` and
+``cond_batch_norm_shards`` run a batch norm over a global batch held as
+per-position shards of a data-parallel mesh (``parallel/data_parallel.py``),
+with the statistics of the whole batch, as the reference's batch norm takes
+them under GSPMD."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import torch
 from torch import nn
@@ -80,6 +84,53 @@ class BatchNorm(nn.Module):
         return y.to(self.dtype or x.dtype)
 
 
+def batch_norm_shards(norms: Sequence[BatchNorm], xs: Sequence[torch.Tensor],
+                      train: bool = True, update: bool = True
+                      ) -> List[torch.Tensor]:
+    """``BatchNorm`` over the global batch held as shards ``xs`` (NCHW, one
+    a mesh position, on the devices of ``norms``, the per-position replicas
+    of one batch norm, ``norms[0]`` the master's). One shard is
+    ``norms[0]``'s own forward. Otherwise, with ``train``, every shard's
+    float32 per-channel sum and sum of squares are gathered on the first
+    shard's device and added in position order, reduced to the global mean
+    and E[x^2] - mean^2 (Flax's formula, clipped at 0), sent back, and each
+    shard normalised with them and its replica's scale and bias, all inside
+    the autograd graph, so the gradient couples the shards as the
+    reference's does. The running averages move once, on the master, and
+    only with ``update``. Without ``train`` each shard takes its replica's
+    running averages."""
+    if len(xs) == 1:
+        return [norms[0](xs[0], train, update)]
+    if not train:
+        return [n(x, False) for n, x in zip(norms, xs)]
+    xfs = [x.float() for x in xs]
+    home = xfs[0].device
+    s = ss = None
+    for xf in xfs:
+        part = xf.sum(dim=(0, 2, 3)).to(home, non_blocking=True)
+        sq = xf.square().sum(dim=(0, 2, 3)).to(home, non_blocking=True)
+        s, ss = (part, sq) if s is None else (s + part, ss + sq)
+    count = sum(xf.numel() // xf.shape[1] for xf in xfs)
+    mean = s / count
+    var = (ss / count - mean.square()).clamp_min(0.0)
+    master = norms[0]
+    if update:
+        with torch.no_grad():
+            m = master.momentum
+            master.mean.copy_(m * master.mean + (1.0 - m) * mean)
+            master.var.copy_(m * master.var + (1.0 - m) * var)
+    inv = torch.rsqrt(var + master.eps)
+    out = []
+    for n, x, xf in zip(norms, xs, xfs):
+        d = xf.device
+        y = ((xf - mean.to(d, non_blocking=True).view(1, -1, 1, 1))
+             * inv.to(d, non_blocking=True).view(1, -1, 1, 1))
+        if n.weight is not None:
+            y = y * n.weight.view(1, -1, 1, 1) + n.bias.view(1, -1, 1, 1)
+        out.append(y.to(master.dtype or x.dtype))
+    return out
+
+
 class CondBatchNorm(nn.Module):
     """Batch norm whose gain and bias are affine in the label vector (port
     of ``hashgan_tpu/models/layers.py:19-57``): ``gamma(y) = 1 + y @ G``,
@@ -96,11 +147,28 @@ class CondBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, labels: torch.Tensor,
                 train: bool = True, update: bool = True) -> torch.Tensor:
-        h = self.norm(x, train, update)
+        return self.modulate(self.norm(x, train, update), labels, x.dtype)
+
+    def modulate(self, h: torch.Tensor, labels: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+        """The normalised ``h`` scaled and shifted by the labels' gain and
+        bias, in ``dtype``."""
         labels = labels.float()
-        gamma = (1.0 + labels @ self.gamma).to(x.dtype)[:, :, None, None]
-        beta = (labels @ self.beta).to(x.dtype)[:, :, None, None]
+        gamma = (1.0 + labels @ self.gamma).to(dtype)[:, :, None, None]
+        beta = (labels @ self.beta).to(dtype)[:, :, None, None]
         return h * gamma + beta
+
+
+def cond_batch_norm_shards(norms: Sequence[CondBatchNorm],
+                           xs: Sequence[torch.Tensor],
+                           labels: Sequence[torch.Tensor], train: bool = True,
+                           update: bool = True) -> List[torch.Tensor]:
+    """``CondBatchNorm`` over the global batch held as shards (see
+    ``batch_norm_shards``), each shard modulated by its own labels and its
+    replica's tables."""
+    hs = batch_norm_shards([n.norm for n in norms], xs, train, update)
+    return [n.modulate(h, y, x.dtype)
+            for n, h, y, x in zip(norms, hs, labels, xs)]
 
 
 def layer_norm_channels(x: torch.Tensor, norm: nn.LayerNorm,

@@ -1,3 +1,9 @@
+from hashgan_tpu_torch.parallel.data_parallel import (  # noqa: F401
+    ReplicaSet,
+    gather_rows,
+    shard_rows,
+    split_rows,
+)
 from hashgan_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,
     make_mesh,

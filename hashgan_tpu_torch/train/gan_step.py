@@ -14,6 +14,18 @@ seeded from (seed, GAN step) with a tag of its own, so a cycle is a pure
 function of its inputs and a resumed run repeats it. They are not the
 reference's ``jax.random`` bits: the parity tests rebuild those and pass
 them in as ``draws``.
+
+Under a data-parallel mesh (``make_gan_cycle(cfg, mesh)``, the reference's
+cycle on a batch sharded along dim 1 of its stack) each mesh position runs
+its rows on its replicas of G and D (``parallel/data_parallel.py``). The
+draws stay the global batch's and are split by rows. G runs in lock-step
+over the positions, its batch norms over the global batch
+(``models/gan.py::generator_shards``); the critic, its gradient penalty
+included (a double backward per position), runs on each position alone, as
+it treats each sample alone. The scores, aux logits and penalty terms are
+gathered on the first position, so every mean is over the global batch;
+the gradients are summed there, the master's optimisers step, and the EMA
+moves once. At one position this is the single-device cycle.
 """
 
 from __future__ import annotations
@@ -24,8 +36,20 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from hashgan_tpu_torch.data.preprocess import _on, to_gan_range
-from hashgan_tpu_torch.losses.wgan_gp import critic_loss_fn, generator_loss_fn
+from hashgan_tpu_torch.data.preprocess import to_gan_range
+from hashgan_tpu_torch.losses.wgan_gp import (
+    critic_loss_from_parts,
+    critic_parts,
+    generator_loss_from_parts,
+)
+from hashgan_tpu_torch.models.gan import generator_shards
+from hashgan_tpu_torch.parallel.data_parallel import (
+    ReplicaSet,
+    gather_rows,
+    replica_cache,
+    shard_rows,
+)
+from hashgan_tpu_torch.parallel.mesh import Mesh
 from hashgan_tpu_torch.train.state import GanState
 
 Draws = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -54,47 +78,79 @@ def _apply_grads(params, grads, opt, sched) -> None:
         sched.step()
 
 
-def make_gan_cycle(cfg) -> Callable:
+def _step(replicas: ReplicaSet, loss: torch.Tensor, opt, sched) -> None:
+    """Every position's gradients of ``loss``, summed on the master, and
+    the master's update."""
+    grads = torch.autograd.grad(loss, replicas.parameters())
+    _apply_grads(list(replicas.master.parameters()), replicas.reduce(grads),
+                 opt, sched)
+
+
+def _gathered(parts) -> Tuple[torch.Tensor, ...]:
+    """Per-position tuples of values -> the values of the global batch."""
+    return tuple(gather_rows(list(p)) for p in zip(*parts))
+
+
+def make_gan_cycle(cfg, mesh: Optional[Mesh] = None) -> Callable:
     """``cycle(state, images_u8 (n_critic + 1, B, H, W, C), labels
     (n_critic + 1, B, K), draws=None) -> metrics``: updates ``state`` (a
     ``GanState``) in place and returns the last critic step's metrics with
-    the generator's, as 0-dim tensors on the device (with ``d_projection``
-    also ``wasserstein_noproj``, the base critic's estimate on the generator
-    step's batch). ``draws`` defaults to ``cycle_draws(cfg.train.seed,
-    state.step, ...)``."""
+    the generator's, as 0-dim tensors on the (first) device (with
+    ``d_projection`` also ``wasserstein_noproj``, the base critic's
+    estimate on the generator step's batch). ``draws`` defaults to
+    ``cycle_draws(cfg.train.seed, state.step, ...)``.
+
+    With a ``mesh`` of more than one position the cycle is data-parallel:
+    ``images_u8`` and ``labels`` are the global stacks (split along dim 1,
+    which the mesh must divide) or one (n_critic + 1, B / n, ...) chunk a
+    position, on its device (a sharded feed's); the state's modules lie on
+    the mesh's first device."""
     gan, multi, seed = cfg.gan, cfg.data.multi_label, cfg.train.seed
     nc = gan.n_critic
+    mesh = mesh if mesh is not None and mesh.size > 1 else None
+    g_replicas, d_replicas = replica_cache(mesh), replica_cache(mesh)
+    loss_kw = dict(gp_lambda=gan.gp_lambda, acgan_scale=gan.acgan_scale,
+                   acgan_fake_scale=gan.acgan_fake_scale, multi_label=multi)
 
-    def cycle(state: GanState, images_u8: torch.Tensor, labels: torch.Tensor,
+    def cycle(state: GanState, images_u8, labels,
               draws: Optional[Draws] = None) -> Dict[str, torch.Tensor]:
-        g, d = state.generator, state.discriminator
-        dev = images_u8.device
+        gs, ds = g_replicas(state.generator), d_replicas(state.discriminator)
+        devs = gs.devices
+        images = shard_rows(devs, images_u8, dim=1)
+        labs = shard_rows(devs, labels, dim=1)
         if draws is None:
-            draws = cycle_draws(seed, state.step, nc, images_u8.shape[1],
-                                gan.z_dim)
-        z_critic, eps, z_g = (_on(t, dev) for t in draws)
-        d_params = list(d.parameters())
+            draws = cycle_draws(seed, state.step, nc,
+                                sum(x.shape[1] for x in images), gan.z_dim)
+        z_critic, eps, z_g = (shard_rows(devs, draws[0], dim=1),
+                              shard_rows(devs, draws[1], dim=1),
+                              shard_rows(devs, draws[2]))
+        gs.sync()
         for k in range(nc):
-            labs = labels[k]
+            ds.sync()
+            labs_k = [y[k] for y in labs]
             with torch.no_grad():
-                fake = g(z_critic[k], labs, train=True, update=False)
-            loss, d_metrics = critic_loss_fn(
-                d, to_gan_range(images_u8[k]),
-                fake, labs, eps[k], gp_lambda=gan.gp_lambda,
-                acgan_scale=gan.acgan_scale,
-                acgan_fake_scale=gan.acgan_fake_scale, multi_label=multi)
-            _apply_grads(d_params, torch.autograd.grad(loss, d_params),
-                         state.d_opt, state.d_sched)
+                fakes = generator_shards(gs.modules, [z[k] for z in z_critic],
+                                         labs_k, train=True, update=False)
+            parts = _gathered(
+                critic_parts(d, to_gan_range(x[k]), f, y, e[k])
+                for d, x, f, y, e in zip(ds.modules, images, fakes, labs_k,
+                                         eps))
+            loss, d_metrics = critic_loss_from_parts(
+                *parts, gather_rows(labs_k), **loss_kw)
+            _step(ds, loss, state.d_opt, state.d_sched)
 
-        labs_g = labels[nc]
-        fake = g(z_g, labs_g, train=True, update=True)
-        loss, g_metrics = generator_loss_fn(
-            d, fake, labs_g,
+        ds.sync()
+        labs_g = [y[nc] for y in labs]
+        fakes = generator_shards(gs.modules, z_g, labs_g, train=True,
+                                 update=True)
+        d_fake, aux_fake = _gathered(
+            d(f, y) for d, f, y in zip(ds.modules, fakes, labs_g))
+        loss, g_metrics = generator_loss_from_parts(
+            d_fake, aux_fake, gather_rows(labs_g),
             acgan_scale_g=gan.acgan_scale_g, multi_label=multi)
-        g_params = list(g.parameters())
-        _apply_grads(g_params, torch.autograd.grad(loss, g_params),
-                     state.g_opt, state.g_sched)
+        _step(gs, loss, state.g_opt, state.g_sched)
 
+        g = state.generator
         if gan.ema_decay > 0 and state.g_ema is not None:
             # the running averages move at the same horizon, so sampling
             # with EMA weights normalises with statistics that match them
@@ -111,15 +167,29 @@ def make_gan_cycle(cfg) -> Callable:
         metrics = {k: v.detach() for k, v in d_metrics.items()}
         metrics.update({k: v.detach() for k, v in g_metrics.items()})
         if gan.d_projection:
+            gs.sync()
             with torch.no_grad():
-                fake = g(z_g, labs_g, train=True, update=False)
-                base_real, _ = d(to_gan_range(images_u8[nc]), None)
-                base_fake, _ = d(fake, None)
+                fakes = generator_shards(gs.modules, z_g, labs_g, train=True,
+                                         update=False)
+                base_real, base_fake = _gathered(
+                    (d(to_gan_range(x[nc]), None)[0], d(f, None)[0])
+                    for d, x, f in zip(ds.modules, images, fakes))
                 metrics["wasserstein_noproj"] = (base_real.mean()
                                                  - base_fake.mean())
         return metrics
 
     return cycle
+
+
+def eval_sampler(g) -> Callable:
+    """``sample(z, labels)``: ``g``'s images in [-1, 1] in eval mode (its
+    running averages), without a gradient."""
+
+    def sample(z: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            return g(z, labels, train=False)
+
+    return sample
 
 
 def sample_images(state: GanState, z: torch.Tensor, labels: torch.Tensor,
@@ -131,5 +201,4 @@ def sample_images(state: GanState, z: torch.Tensor, labels: torch.Tensor,
     if ema and state.g_ema is not None:
         g = copy.deepcopy(g)
         g.load_state_dict({**state.g_ema, **state.g_ema_stats})
-    with torch.no_grad():
-        return g(z, labels, train=False)
+    return eval_sampler(g)(z, labels)

@@ -30,6 +30,11 @@ cuDNN and Adam's state before the capture (a capture runs nothing). A
 capture or a replay that fails raises; no step falls back to eager on the
 card. On the CPU there is no graph: the same steps run eagerly through the
 same buffers.
+
+This is the mesh-1 path. At a data-parallel mesh above 1 ``Experiment``
+runs ``hash_step.sharded_update_step`` eagerly through its windows: every
+position trains, with no graph around the step (one graph of the sharded
+step is a lever on record, ROADMAP queue 2).
 """
 
 from __future__ import annotations

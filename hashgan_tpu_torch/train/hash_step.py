@@ -17,11 +17,24 @@ on the first labels of the batch, which they inherit. With
 geometry to the real and generated images together, and the encode
 function the evaluation geometry, for any arch, as the reference does
 (``hash_step.py:91-98, 135-141``).
+
+Under a data-parallel mesh (``make_encoder_train_step(cfg, mesh)``, the
+reference's step on a batch sharded along dim 0) each mesh position runs
+its rows on its replica of the encoder (``parallel/data_parallel.py``,
+``sharded_update_step``). The draws are made for the global batch, exactly
+as at mesh 1, and split by rows; so are the generated images (the global
+batch's ``n_fake``, conditioned on its first labels, split over the
+positions and made on each position's replica of G) and AlexNet's dropout
+noise (drawn once for every row on the first position). The encoders hold
+no batch norm, so each position runs to its codes; the codes are gathered
+on the first position in mesh 1's row order (every real row, then every
+generated one) with their gradient, the WML loss pairs the whole batch
+there, and the gradients are summed there before the master's update.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,8 +52,29 @@ from hashgan_tpu_torch.data.preprocess import (
 )
 from hashgan_tpu_torch.losses.pairwise import wml_pairwise_loss
 from hashgan_tpu_torch.models.alexnet import dropout_noise, draw_dropout_seed
-from hashgan_tpu_torch.parallel.mesh import shard_batch
+from hashgan_tpu_torch.parallel.data_parallel import (
+    ReplicaSet,
+    gather_rows,
+    replica_cache,
+    shard_rows,
+    split_rows,
+)
+from hashgan_tpu_torch.parallel.mesh import Mesh, shard_batch
 from hashgan_tpu_torch.train.state import EncoderState
+
+
+def wml_loss(codes: torch.Tensor, labels: torch.Tensor, cfg,
+             sample_weight: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``cfg.hash_loss``'s WML loss of ``codes`` against ``labels``."""
+    hl = cfg.hash_loss
+    return wml_pairwise_loss(
+        codes, labels, alpha=hl.alpha, similarity=hl.similarity,
+        class_balance=hl.class_balance,
+        class_balance_cap=hl.class_balance_cap,
+        class_balance_mode=hl.class_balance_mode,
+        quantization_weight=hl.quantization_weight,
+        balance_weight=hl.balance_weight, sample_weight=sample_weight)
 
 
 def encoder_loss_and_grad(encoder: nn.Module, x: torch.Tensor,
@@ -55,17 +89,10 @@ def encoder_loss_and_grad(encoder: nn.Module, x: torch.Tensor,
     and backpropagate: the gradients are left in the parameters' ``.grad``
     (set anew, not accumulated). ``dropout`` is the step's dropout noise,
     for an encoder that drops (AlexNet). Returns (loss, metrics)."""
-    hl = cfg.hash_loss
     encoder.train()
     encoder.zero_grad(set_to_none=True)
     codes = encoder(x) if dropout is None else encoder(x, dropout=dropout)
-    loss, metrics = wml_pairwise_loss(
-        codes, labels, alpha=hl.alpha, similarity=hl.similarity,
-        class_balance=hl.class_balance,
-        class_balance_cap=hl.class_balance_cap,
-        class_balance_mode=hl.class_balance_mode,
-        quantization_weight=hl.quantization_weight,
-        balance_weight=hl.balance_weight, sample_weight=sample_weight)
+    loss, metrics = wml_loss(codes, labels, cfg, sample_weight)
     loss.backward()
     return loss, metrics
 
@@ -82,13 +109,21 @@ def add_fakes(x: torch.Tensor, labels: torch.Tensor, cfg,
     n, n_fake = x.shape[0], z.shape[0]
     fake_labels = labels[:n_fake]
     fake = gan_to_encoder_input(sample(z, fake_labels))
-    weights = None
+    return (torch.cat([x, fake]), torch.cat([labels, fake_labels]),
+            fake_weights(cfg, n, n_fake, x.device))
+
+
+def fake_weights(cfg, n: int, n_fake: int, device: torch.device
+                 ) -> Optional[torch.Tensor]:
+    """The per-sample pair weights of ``n`` real and ``n_fake`` generated
+    images: 1 for real, ``cfg.train.fake_pair_weight`` for generated; None
+    where that weight is 1."""
     w = cfg.train.fake_pair_weight
-    if w != 1.0:
-        weights = torch.cat([
-            torch.ones(n, dtype=torch.float32, device=x.device),
-            torch.full((n_fake,), w, dtype=torch.float32, device=x.device)])
-    return (torch.cat([x, fake]), torch.cat([labels, fake_labels]), weights)
+    if w == 1.0:
+        return None
+    return torch.cat([torch.ones(n, dtype=torch.float32, device=device),
+                      torch.full((n_fake,), w, dtype=torch.float32,
+                                 device=device)])
 
 
 class StepDraws(NamedTuple):
@@ -142,6 +177,18 @@ def draw_step(cfg, seed: int, step: int, batch: int, n_fake: int,
     return StepDraws(flip, crop, z, geometry, dropout_seed)
 
 
+def _augment(images_u8: torch.Tensor, flip: torch.Tensor,
+             crop: Optional[torch.Tensor], cfg) -> torch.Tensor:
+    """Real images -> flipped (and cropped) encoder inputs."""
+    dev = images_u8.device
+    x = flip_images(to_encoder_input(images_u8), _on(flip, dev))
+    pad = cfg.train.crop_pad
+    if pad > 0:
+        r = _on(crop, dev)
+        x = crop_images(x, r, r, pad)
+    return x
+
+
 def update_step(state: EncoderState, images_u8: torch.Tensor,
                 labels: torch.Tensor, draws: StepDraws, cfg,
                 sample: Optional[Callable] = None,
@@ -154,11 +201,7 @@ def update_step(state: EncoderState, images_u8: torch.Tensor,
     on the device already, as a CUDA graph of this function has them.
     Returns the metrics as 0-dim tensors on the device."""
     dev = images_u8.device
-    x = flip_images(to_encoder_input(images_u8), _on(draws.flip, dev))
-    pad = cfg.train.crop_pad
-    if pad > 0:
-        r = _on(draws.crop, dev)
-        x = crop_images(x, r, r, pad)
+    x = _augment(images_u8, draws.flip, draws.crop, cfg)
     weights = None
     if sample is not None:
         x, labels, weights = add_fakes(x, labels, cfg, sample,
@@ -197,7 +240,69 @@ def compute_step(state: EncoderState, images_u8: torch.Tensor,
     return metrics
 
 
-def make_encoder_train_step(cfg) -> Callable:
+def sharded_update_step(state: EncoderState, replicas: ReplicaSet,
+                        images_u8, labels, draws: StepDraws, cfg,
+                        sample=None) -> Dict[str, torch.Tensor]:
+    """``update_step`` at a data-parallel mesh: ``replicas`` hold
+    ``state.module`` (the master, at position 0) and its copies,
+    ``images_u8`` and ``labels`` are one chunk a position (or the global
+    batch, split here), ``draws`` the global batch's, ``sample`` one G
+    sampler a position or None. Returns the metrics on the first device.
+    See the module docstring."""
+    devs = replicas.devices
+    images = shard_rows(devs, images_u8)
+    labs = shard_rows(devs, labels)
+    rows = [x.shape[0] for x in images]
+    b = sum(rows)
+    crops = (split_rows(draws.crop, devs, rows) if cfg.train.crop_pad > 0
+             else [None] * len(devs))
+    xs = [_augment(x, f, c, cfg) for x, f, c in
+          zip(images, split_rows(draws.flip, devs, rows), crops)]
+    all_labels = gather_rows(labs)
+    n_fake = 0 if sample is None else draws.z.shape[0]
+    fakes = [x[:0] for x in xs]
+    if n_fake:
+        fake_labels = all_labels[:n_fake]
+        fakes = [gan_to_encoder_input(s(z, y)) for s, z, y in zip(
+            sample, split_rows(draws.z, devs),
+            split_rows(fake_labels, devs))]
+        all_labels = torch.cat([all_labels, fake_labels])
+    n_fakes_at = [f.shape[0] for f in fakes]
+
+    def by_position(t: torch.Tensor) -> List[torch.Tensor]:
+        """Rows of the global batch in mesh 1's order (real, then
+        generated) -> each position's real rows, then its generated."""
+        return [torch.cat(p) for p in zip(split_rows(t[:b], devs, rows),
+                                          split_rows(t[b:], devs, n_fakes_at))]
+
+    xs = [torch.cat(p) for p in zip(xs, fakes)]
+    if cfg.encoder.input_resize > 0:
+        offsets = (by_position(draws.geometry) if draws.geometry is not None
+                   else [None] * len(devs))
+        xs = [alexnet_train_geometry(None, x, cfg.encoder.input_resize,
+                                     cfg.encoder.resize_base, offsets=o)
+              for x, o in zip(xs, offsets)]
+    noise = [None] * len(devs)
+    if draws.dropout_seed is not None:
+        noise = list(zip(*(by_position(t) for t in dropout_noise(
+            draws.dropout_seed, b + n_fake, devs[0]))))
+    codes = []
+    for m, x, nz in zip(replicas.modules, xs, noise):
+        m.train()
+        codes.append(m(x) if nz is None else m(x, dropout=nz))
+    codes = gather_rows([c[:n] for c, n in zip(codes, rows)]
+                        + [c[n:] for c, n in zip(codes, rows)])
+    loss, metrics = wml_loss(codes, all_labels, cfg,
+                             fake_weights(cfg, b, n_fake, devs[0])
+                             if n_fake else None)
+    grads = torch.autograd.grad(loss, replicas.parameters())
+    for p, g in zip(replicas.master.parameters(), replicas.reduce(grads)):
+        p.grad = g
+    state.optimizer.step()
+    return {k: v.detach() for k, v in metrics.items()}
+
+
+def make_encoder_train_step(cfg, mesh: Optional[Mesh] = None) -> Callable:
     """``step(state, images_u8, labels, sample=None, flip=None, z=None,
     crop=None, geometry=None) -> metrics``: ``compute_step(draw_step(...))``
     at the state's step count. It updates ``state`` (an ``EncoderState``)
@@ -210,21 +315,37 @@ def make_encoder_train_step(cfg) -> Callable:
     crop) of the real ones; the AlexNet geometry (``input_resize > 0``)
     then applies to all of them. ``flip`` (B,) bool, ``crop`` (B,) and
     ``geometry`` (B + n_fake,) integer offsets and ``z`` (n_fake, z_dim)
-    replace the step's own draws (the parity tests feed the reference's)."""
-    seed = cfg.train.seed
+    replace the step's own draws (the parity tests feed the reference's).
 
-    def step(state: EncoderState, images_u8: torch.Tensor,
-             labels: torch.Tensor, sample: Optional[Callable] = None,
+    With a ``mesh`` of more than one position the step is data-parallel
+    (``sharded_update_step``): ``images_u8`` and ``labels`` are the global
+    batch (which the mesh must divide) or one chunk a position, on its
+    device (a sharded feed's); ``sample`` is one sampler a position, each
+    on its replica of G; the draws are the global batch's, as at mesh
+    1."""
+    seed = cfg.train.seed
+    replicas = (replica_cache(mesh) if mesh is not None and mesh.size > 1
+                else None)
+
+    def step(state: EncoderState, images_u8, labels, sample=None,
              flip: Optional[torch.Tensor] = None,
              z: Optional[torch.Tensor] = None,
              crop: Optional[torch.Tensor] = None,
              geometry: Optional[torch.Tensor] = None,
              ) -> Dict[str, torch.Tensor]:
-        b = images_u8.shape[0]
+        b = (images_u8.shape[0] if torch.is_tensor(images_u8)
+             else sum(x.shape[0] for x in images_u8))
         n_fake = 0 if sample is None else n_fakes(cfg, b)
         draws = draw_step(cfg, seed, state.step, b, n_fake, flip=flip,
                           crop=crop, z=z, geometry=geometry)
-        return compute_step(state, images_u8, labels, draws, cfg, sample)
+        if replicas is None:
+            return compute_step(state, images_u8, labels, draws, cfg, sample)
+        rs = replicas(state.module)
+        rs.sync()
+        metrics = sharded_update_step(state, rs, images_u8, labels, draws,
+                                      cfg, sample)
+        advance(state)
+        return metrics
 
     return step
 

@@ -15,8 +15,9 @@ then Hamming-ranking evaluation and the index.
   split held on the device (``data/device_data.py``) in windows that end
   on every boundary, ``gcd`` of the boundaries' periods long
   (``:152-203, 429-492``). Stage II replays one CUDA graph a step through
-  a window (``train/graph_step.py``); stage I runs its cycles eagerly,
-  with no host sync inside a window. A full window logs the means of its
+  a window (``train/graph_step.py``) at mesh 1; stage I, and stage II at a
+  mesh above 1, run their steps eagerly, with no host sync inside a
+  window. A full window logs the means of its
   steps, a ragged one (a resumed run's first, a run's last) its last
   step's metrics, as the reference does. The encode holds each split on
   the device (``ResidentEncoder``). Batches, steps and codes are the host
@@ -34,14 +35,16 @@ The experiment holds a mesh (``parallel/mesh.py``): by default
 ``make_mesh(cfg.mesh.n_devices)``, every CUDA device, or one of the device
 the caller passes (``device="cpu"``, as the tests do), or the caller's own
 ``mesh=``; ``use_mesh=False`` holds none. Its first device is
-``self.device``. What is sharded at a mesh size above 1: the encode of a
-split of at least ``eval.encode_shard_min`` images (one replica of the
-encoder a device, refreshed at every encode), ``build_index`` and
-``evaluate`` (MAP@R and P@H<=r from ``eval/sharded.py``, or, past
+``self.device``. What is sharded at a mesh size above 1: both stages'
+training, data-parallel (``parallel/data_parallel.py``: one replica of each
+trained module a position, the batch split by rows, on either feed, the
+gradients summed on the first device, whose state alone is kept and
+checkpointed, so a checkpoint restores at any mesh); the encode of a split
+of at least ``eval.encode_shard_min`` images (one replica of the encoder a
+device, refreshed at every encode), ``build_index`` and ``evaluate``
+(MAP@R and P@H<=r from ``eval/sharded.py``, or, past
 ``streaming_threshold``, tie-aware MAP and the curves from the sharded
-histograms). What is not yet: training, which runs on the first device
-with a warning until data-parallel training is ported (ROADMAP.md, queue 1
-item 6b). A mesh of size 1 runs the single-device code.
+histograms). A mesh of size 1 runs the single-device code.
 """
 
 from __future__ import annotations
@@ -85,13 +88,18 @@ from hashgan_tpu_torch.eval.streaming import (
 )
 from hashgan_tpu_torch.index.gallery import PackedGallery, build_gallery
 from hashgan_tpu_torch.ops.pack import pack_codes
+from hashgan_tpu_torch.parallel.data_parallel import ReplicaSet
 from hashgan_tpu_torch.parallel.mesh import Mesh, make_mesh, replicate
 from hashgan_tpu_torch.train.hash_step import (
     encode_dataset,
     make_encode_fn,
     make_encoder_train_step,
 )
-from hashgan_tpu_torch.train.gan_step import make_gan_cycle, sample_images
+from hashgan_tpu_torch.train.gan_step import (
+    eval_sampler,
+    make_gan_cycle,
+    sample_images,
+)
 from hashgan_tpu_torch.train.graph_step import GraphedEncoderStep
 from hashgan_tpu_torch.train.state import create_encoder_state, create_gan_state
 from hashgan_tpu_torch.utils.checkpoint import (
@@ -108,7 +116,6 @@ class Experiment:
     def __init__(self, cfg, workdir: Optional[str] = None,
                  device: Optional[torch.device | str] = None,
                  use_mesh: bool = True, mesh: Optional[Mesh] = None):
-        self._enc_step = make_encoder_train_step(cfg)
         set_numerics()
         self.cfg = cfg
         if mesh is None and use_mesh:
@@ -124,20 +131,25 @@ class Experiment:
             self.device = (require_cuda() if device is None
                            else torch.device(device))
         self.mesh = mesh
-        self._mesh_train_warned = False
+        self._dp = mesh is not None and mesh.size > 1
+        train_mesh = mesh if self._dp else None
+        self._enc_step = make_encoder_train_step(cfg, train_mesh)
         self.workdir = workdir or cfg.train.workdir
         os.makedirs(self.workdir, exist_ok=True)
         self.logger = MetricsLogger(self.workdir)
         self.splits = make_splits(cfg.data)
+        # capturable Adam for stage II's CUDA graph, which mesh 1 replays
         self.encoder_state = create_encoder_state(
-            cfg, self.device,
-            capturable=cfg.train.device_data and self.device.type == "cuda")
+            cfg, self.device, capturable=(
+                cfg.train.device_data and not self._dp
+                and self.device.type == "cuda"))
         self.encoder = self.encoder_state.module
         self._encode = make_encode_fn(self.encoder, cfg)
         self._saturation_warned = False
         self.gan_state = (create_gan_state(cfg, self.device) if cfg.use_gan
                           else None)
-        self._gan_cycle = make_gan_cycle(cfg) if cfg.use_gan else None
+        self._gan_cycle = (make_gan_cycle(cfg, train_mesh) if cfg.use_gan
+                           else None)
         self._enc_uses_gan = cfg.use_gan and cfg.train.use_gan_samples
         self._sources: Dict[tuple, DeviceBatchSource] = {}
         self._graphed: Optional[GraphedEncoderStep] = None
@@ -155,7 +167,6 @@ class Experiment:
                              "(use_gan is false)")
         cfg = self.cfg
         iters = iters if iters is not None else cfg.gan.iters
-        self._warn_mesh_training()
         st = self.gan_state
         means: Dict[str, float] = {}
 
@@ -177,33 +188,21 @@ class Experiment:
             window = max(1, math.gcd(math.gcd(cfg.train.log_every,
                                               cfg.train.sample_every),
                                      cfg.train.checkpoint_every))
-            for w in _windows(st.step, iters, window):
-                total = 0
-                for _ in range(w):
-                    metrics = self._gan_cycle(st, *src.batch(st.step))
-                    total = total + torch.stack(list(metrics.values()))
-                if w == window:
-                    metrics = dict(zip(metrics, total / w))
-                boundaries(metrics)
+            _eager_windows(st.step, iters, window, lambda: self._gan_cycle(
+                st, *self._positions(src.batch(st.step))), boundaries)
             return means
         batches = make_batch_feed(
             self.splits["train"], cfg, start_step=st.step,
             seed=cfg.train.seed, device=self.device,
-            n_batches=cfg.gan.n_critic + 1)
+            n_batches=cfg.gan.n_critic + 1, mesh=self.mesh)
         for _ in range(iters):
-            boundaries(self._gan_cycle(st, *next(batches)))
+            boundaries(self._gan_cycle(st, *self._positions(next(batches))))
         return means
 
-    def _warn_mesh_training(self) -> None:
-        """Training is not sharded yet: at a mesh size above 1 it runs on
-        the first device, which is said once."""
-        if self._mesh_train_warned or self.mesh is None or self.mesh.size < 2:
-            return
-        self._mesh_train_warned = True
-        warnings.warn(
-            f"data-parallel training is not ported yet (ROADMAP.md, queue 1 "
-            f"item 6b): training runs on {self.device} alone; evaluation and "
-            f"the index use the mesh of {self.mesh.size}", stacklevel=3)
+    def _positions(self, batch):
+        """A feed's batch as the steps take it: at a mesh above 1, (one
+        images chunk a position, one labels chunk a position)."""
+        return tuple(zip(*batch)) if self._dp else batch
 
     def _sample(self, z: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         """G's images (live weights, running averages, no gradient): what
@@ -328,7 +327,6 @@ class Experiment:
         step on. Returns the means of the last flushed log."""
         cfg = self.cfg
         iters = iters if iters is not None else cfg.encoder.iters
-        self._warn_mesh_training()
         state = self.encoder_state
         if (cfg.encoder.arch == "alexnet" and not cfg.encoder.pretrained_npy
                 and cfg.encoder.hash_lr_multiplier != 1.0 and state.step == 0):
@@ -343,6 +341,11 @@ class Experiment:
                 "encoder.pretrained_npy.",
                 stacklevel=2)
         sample = self._stage2_guard()
+        if sample is not None and self._dp:
+            # G's share of each step's generated images is made on each
+            # position's copy of it (G does not train in stage II)
+            sample = [eval_sampler(g) for g in ReplicaSet(
+                self.mesh, self.gan_state.generator).modules]
         means: Dict[str, float] = {}
 
         def boundaries(metrics):
@@ -360,15 +363,22 @@ class Experiment:
                 self.save_checkpoint()
 
         pair_balanced = cfg.train.pair_sampling == "balanced"
+        window = max(1, math.gcd(math.gcd(cfg.train.log_every,
+                                          cfg.train.eval_every),
+                                 cfg.train.checkpoint_every))
+        if cfg.train.device_data and self._dp:
+            src = self._device_source(cfg.train.seed + 1,
+                                      pair_balanced=pair_balanced)
+            _eager_windows(state.step, iters, window, lambda: self._enc_step(
+                state, *self._positions(src.batch(state.step)),
+                sample=sample), boundaries)
+            return means
         if cfg.train.device_data:
             if self._graphed is None or self._graphed.sample != sample:
                 self._graphed = GraphedEncoderStep(
                     state, self._device_source(cfg.train.seed + 1,
                                                pair_balanced=pair_balanced),
                     cfg, sample)
-            window = max(1, math.gcd(math.gcd(cfg.train.log_every,
-                                              cfg.train.eval_every),
-                                     cfg.train.checkpoint_every))
             for w in _windows(state.step, iters, window):
                 if w == window:
                     metrics = self._graphed.run(w)
@@ -380,16 +390,17 @@ class Experiment:
         batches = make_batch_feed(
             self.splits["train"], cfg, start_step=state.step,
             seed=cfg.train.seed + 1, device=self.device,
-            pair_balanced=pair_balanced)
+            pair_balanced=pair_balanced, mesh=self.mesh)
         for _ in range(iters):
-            images, labels = next(batches)
-            boundaries(self._enc_step(state, images, labels, sample=sample))
+            boundaries(self._enc_step(state, *self._positions(next(batches)),
+                                      sample=sample))
         return means
 
     def _device_source(self, seed: int, n_batches: int = 1,
                        pair_balanced: bool = False) -> DeviceBatchSource:
-        """The train split on the device, sampled from ``seed``: made at
-        its first use and kept, as the CUDA graph reads from it."""
+        """The train split on the device (on every device of the mesh, at a
+        mesh above 1), sampled from ``seed``: made at its first use and
+        kept, as the CUDA graph reads from it."""
         key = (seed, n_batches, pair_balanced)
         if key not in self._sources:
             cfg = self.cfg
@@ -397,7 +408,7 @@ class Experiment:
                 self.splits["train"], cfg.train.batch_size, seed=seed,
                 epoch_shuffle=cfg.train.epoch_shuffle,
                 pair_balanced=pair_balanced, n_batches=n_batches,
-                device=self.device)
+                device=self.device, mesh=self.mesh)
         return self._sources[key]
 
     # ------------------------------------------------------------------
@@ -661,6 +672,14 @@ def _load_encoder_optimizer(st, opt_state: dict,
             f"config's encoder {n_now}: the states cannot be mapped")
     st.optimizer.load_state_dict({"state": opt_state["state"],
                                   "param_groups": groups})
+    for g in st.optimizer.param_groups:
+        if not g["capturable"]:
+            # a capturable optimiser's step counts lie on the device (the
+            # graph's, at mesh 1); plain Adam reads its own on the host
+            for p in g["params"]:
+                state = st.optimizer.state.get(p, {})
+                if torch.is_tensor(state.get("step")):
+                    state["step"] = state["step"].cpu()
     sched = st.scheduler
     if sched is None or sched_state is None:
         return
@@ -674,6 +693,22 @@ def _load_encoder_optimizer(st, opt_state: dict,
         else:
             g["lr"] = lr
     sched._last_lr = lrs
+
+
+def _eager_windows(start: int, iters: int, window: int,
+                   one: Callable[[], Dict[str, torch.Tensor]],
+                   boundaries: Callable) -> None:
+    """``iters`` calls of ``one`` (a step or cycle, eagerly) in the runs of
+    ``_windows``, ``boundaries`` after each run with its metrics: a full
+    window's means, a ragged run's last step's."""
+    for w in _windows(start, iters, window):
+        total = 0
+        for _ in range(w):
+            metrics = one()
+            total = total + torch.stack(list(metrics.values()))
+        if w == window:
+            metrics = dict(zip(metrics, total / w))
+        boundaries(metrics)
 
 
 def _windows(start: int, iters: int, window: int):

@@ -654,3 +654,59 @@ def test_virtual_mesh_gallery_equals_single_device(dev, nd):
     torch.cuda.synchronize()
     assert _build.launch_counts()["hamming"] == nd * nd
     assert all(torch.equal(a, b) for a, b in zip(ring, one.topk(q, k=100)))
+
+
+def test_virtual_mesh_step_equals_mesh_1(dev):
+    """One config1 stage-II step (SmallCNN dim 64, 32 bits, batch 64,
+    float32) at a virtual mesh of 2 on the card against mesh 1, from the
+    same weights, batch and draws: the metrics and the gradients summed on
+    the first position within 1e-5, the parameters within 1e-5 on 99.9% of
+    the entries and every one within Adam's 2 lr (its first step, about lr
+    * sign(g), may flip an entry whose gradient is at rounding level).
+    cuDNN is off: it picks its convolution algorithm by batch size, and
+    the algorithms for 32 and 64 images (Winograd, FFT) moved a gradient of
+    a conv bias that GroupNorm nearly cancels by 2.2e-5 on an H100, which
+    says nothing of the mesh; PyTorch's own convolutions compute each
+    image alone, so only the order of the gradient sums differs. Phase 13
+    of chip_smoke.py measures the bf16 preset with cuDNN."""
+    import dataclasses
+
+    from hashgan_tpu_torch.configs import get_config
+    from hashgan_tpu_torch.parallel import Mesh
+    from hashgan_tpu_torch.train.hash_step import make_encoder_train_step
+    from hashgan_tpu_torch.train.state import create_encoder_state
+
+    set_numerics()
+    cfg = get_config("config1")
+    cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+        cfg.encoder, compute_dtype="float32"))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    images = torch.randint(0, 256, (64, 32, 32, 3), device=dev, generator=gen,
+                           dtype=torch.uint8)
+    labels = torch.nn.functional.one_hot(torch.randint(
+        0, cfg.data.n_classes, (64,), device=dev, generator=gen),
+        cfg.data.n_classes).float()
+    out = []
+    with torch.backends.cudnn.flags(enabled=False):
+        for n in (1, 2):
+            st = create_encoder_state(cfg, dev)
+            m = make_encoder_train_step(cfg, Mesh([dev] * n))(st, images,
+                                                              labels)
+            out.append(({k: v.item() for k, v in m.items()},
+                        {k: p.grad.clone() for k, p in
+                         st.module.named_parameters()},
+                        {k: p.detach().clone() for k, p in
+                         st.module.named_parameters()}))
+    (m1, g1, p1), (m2, g2, p2) = out
+    for k, v in m1.items():
+        if k != "bit_balance":  # a mean of signs
+            assert abs(m2[k] - v) <= 1e-5 * max(1.0, abs(v)), (k, m2[k], v)
+    bound = 2 * cfg.encoder.lr * cfg.encoder.hash_lr_multiplier + 1e-6
+    near = total = 0
+    for k in g1:
+        assert (g2[k] - g1[k]).abs().max().item() <= 1e-5, k
+        d = (p2[k] - p1[k]).abs()
+        assert d.max().item() <= bound, k
+        near += int((d <= 1e-5).sum())
+        total += d.numel()
+    assert near >= 0.999 * total, (near, total)

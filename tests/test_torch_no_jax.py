@@ -63,7 +63,8 @@ def test_port_imports_no_jax():
                  "losses.wgan_gp", "train.gan_step", "eval.sample_quality",
                  "utils.images", "data.cifar10", "data.lists",
                  "data.loader", "parallel", "parallel.mesh",
-                 "parallel.sharded_scan", "eval.sharded"):
+                 "parallel.sharded_scan", "parallel.data_parallel",
+                 "eval.sharded"):
         assert f"hashgan_tpu_torch.{name}" in got["modules"]
     assert len(got["modules"]) >= 37
     assert got["jax"] == [], f"JAX modules imported by the port: {got['jax']}"
