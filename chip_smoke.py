@@ -3,8 +3,9 @@ every single-device search engine, config1's stage-II training and
 evaluation, the measurement path (the scan and serving benchmarks, the
 scan variants, the flagship ``entry()``, the AlexNet and ResNet encoders),
 config2's GAN stage I with co-training, the paper's cifar10_step2, the
-device-resident batch feed, the gallery sharded over a mesh, and
-data-parallel training over a mesh.
+device-resident batch feed, the gallery sharded over a mesh,
+data-parallel training over a mesh, and the large-k selects at the
+protocol's shape.
 
     python3 chip_smoke.py        (from the repository root; no arguments)
 
@@ -47,12 +48,17 @@ the sharded encode and evaluation, and ``ServingPipeline`` over each mesh,
 then data-parallel training (phase 13): config2's GAN cycle and config1's
 and config4's stage-II steps at full width over virtual meshes of 2 and 4
 against mesh 1 (times, idle shares, parameter differences after 1 and 20
-steps), ``dryrun_multichip(2)`` and ``(4)`` with their engines' launches a
-shard, config1's ``Experiment`` resumed at mesh 2 bit for bit, and no host
-sync inside a sharded step. Every answer is checked against plain
-witnesses and numpy oracles. Imports nothing of JAX and nothing of the JAX
-package ``hashgan_tpu``: the presets and the synthetic images come from
-the port.
+steps), ``dryrun_multichip(2)`` and ``(4)`` called without devices, as the
+reference's callers call them, with their engines' launches a shard,
+config1's ``Experiment`` resumed at mesh 2 bit for bit, and no host sync
+inside a sharded step, then the large-k selects (phase 14):
+``scripts/bench_large_k_select_torch.py`` at the protocol's shape
+(1,048,576 x 128 bits, 1,024 queries, k 1,000 and 5,000), every select
+witnessed by the sort engine and the host scanner before it is timed, and
+the host scanner witnessing phase 8's headline. Every answer is checked
+against plain witnesses and numpy oracles. Imports nothing of JAX and
+nothing of the JAX package ``hashgan_tpu``: the presets and the synthetic
+images come from the port.
 
 Each phase prints one line (the scan benchmark also its headline JSON);
 then the card's name and power limit, the kernels as one JSON object, and
@@ -2708,7 +2714,8 @@ def data_parallel_training(torch, dev, smi: str) -> dict:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
 
-    # dryrun_multichip on virtual meshes: its engines launch per shard
+    # dryrun_multichip(n) as the reference's callers call it: on one card a
+    # virtual mesh of it n times; its engines launch per shard
     walls["sync check"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     dry = {}
@@ -2716,7 +2723,7 @@ def data_parallel_training(torch, dev, smi: str) -> dict:
         _build.reset_launch_counts()
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
-            dryrun_multichip(n, [dev] * n)
+            dryrun_multichip(n)
         torch.cuda.synchronize()
         counts = _build.launch_counts()
         check(f"dryrun_multichip({n}): ok" in out.getvalue(),
@@ -2781,6 +2788,73 @@ def data_parallel_training(torch, dev, smi: str) -> dict:
     return dry
 
 
+def large_k_select(torch, dev, smi: str) -> dict:
+    """Phase 14: ``scripts/bench_large_k_select_torch.py`` at the protocol's
+    shape (1,048,576 x 128 bits, 1,024 queries, k 1,000 and 5,000), with the
+    launch counts set to 0 just before and read just after; it raises unless
+    every select equals the sort engine on all queries and the host scanner
+    on 16 before it times them. Then the host scanner, independent of the
+    CUDA kernels, witnesses phase 8's headline: ``run_bench``'s k = 100
+    batch over its 1M gallery, drawn again from its seed, through
+    ``mxu_topk``, its first 16 queries against ``hamming_topk_native``."""
+    from hashgan_tpu_torch.bench_scan import _gallery, _on
+    from hashgan_tpu_torch.ops import _build, native
+    from hashgan_tpu_torch.ops.mxu_scan import mxu_topk
+    from scripts.bench_large_k_select_torch import run as select_bench
+
+    t_phase = time.perf_counter()
+    _build.reset_launch_counts()
+    out = select_bench(device=dev)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    check(all(counts[k] > 0 for k in ("subgroupmin_scan", "fused_rescan",
+                                      "hamming")),
+          f"the large-k select bench did not launch K5, K3 and K4: {counts}")
+    seen = out["witnessed"]
+    check(seen["ks"] == [1000, 5000] and len(seen["selects"]) == 4
+          and seen["sort_engine_queries"] == 1024
+          and seen["native_queries"] == 16,
+          f"the large-k select bench witnessed {seen}")
+
+    # phase 8's headline: run_bench's defaults (128 bits, 1,048,576 items,
+    # 1,024 queries, k = 100, 6 timing batches) and its draws, in its order
+    bits, n, q, k = 128, 1 << 20, 1024, 100
+    w = bits // 32
+    rng = np.random.default_rng(0)
+    packed_q = rng.integers(0, 2**32, (q, w), dtype=np.uint32)
+    rng.integers(0, 2**32, (6, q, w), dtype=np.uint32)  # its timing batches
+    pg = rng.integers(0, 2**32, (n, w), dtype=np.uint32)
+    gal = _gallery(pg, dev)
+    d, i = mxu_topk(_on(packed_q, dev), gal.gallery_grouped, gal.canon_bg, n,
+                    k=k)
+    t0 = time.perf_counter()
+    nd, ni = native.hamming_topk_native(packed_q[:16], pg, k)
+    native_s = time.perf_counter() - t0
+    check(np.array_equal(d[:16].cpu().numpy(), nd)
+          and np.array_equal(i[:16].cpu().numpy(), ni),
+          "phase 8's headline k = 100 != the host scanner on 16 queries")
+    del gal, d, i
+
+    sel = "; ".join(
+        f"k={kk} " + ", ".join(
+            f"{s} {out[f'k{kk}_{s}_ms']:.4f} / "
+            f"{out[f'k{kk}_{s}_ms_median']:.4f} ms "
+            f"{out[f'k{kk}_{s}_cmp_per_sec_e9']:.1f}e9 cmp/s"
+            for s in seen["selects"]) for kk in seen["ks"])
+    prims = ", ".join(
+        f"{key[len('prim_'):-len('_ms')]} {v:.4f}" for key, v in out.items()
+        if key.startswith("prim_") and key.endswith("_ms"))
+    print(f"phase 14 large-k selects ({smi}; {out['n']} x {out['bits']}-bit, "
+          f"{out['q']} queries a batch, {out['batches']} batches between CUDA "
+          f"events, min / median of 5): {sel} | primitives (min ms a call): "
+          f"{prims} | every select == the sort engine on {out['q']} queries "
+          f"and == the host scanner on 16 at k {seen['ks']}; phase 8's "
+          f"headline (k = 100, 1,024 x 1M) == the host scanner on 16 queries "
+          f"({native_s:.2f} s on the host) | launches {counts}; phase 14 wall "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -2796,9 +2870,12 @@ def main() -> None:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    # the host compiler: nvcc's, and the one the host scanner is built with
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.splitlines()[0]
     print(f"phase 1 card: {torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()}, torch {torch.__version__}, "
-          f"CUDA {torch.version.cuda}", flush=True)
+          f"CUDA {torch.version.cuda}, {gxx}", flush=True)
 
     from hashgan_tpu_torch.configs import get_config
     from hashgan_tpu_torch.data.synthetic import make_synthetic
@@ -3429,6 +3506,11 @@ def main() -> None:
     for name in KERNEL_INFO:
         stats[name]["dryrun_launches"] = {
             str(n): v[name] for n, v in dry.items() if name in v}
+
+    # ---- phase 14: the large-k selects at the protocol's shape -------------
+    # K5 and K3 through mxu_topk_large, K4 through the sort-engine witness
+    # (checked in its own run; the kernels line keeps the main path's counts)
+    large_k_select(torch, dev, smi)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     stats["pm_groupmin_scan"].update(

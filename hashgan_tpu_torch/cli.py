@@ -13,11 +13,16 @@
 
 ``train --stage 1`` trains the GAN (where the config has one), ``--stage
 2`` the encoder, ``--stage all`` both in turn. ``--config`` takes a preset
-name or a path to a yaml override file. Every command runs on CUDA device
-``--gpu`` (default 0) and fails without one. Galleries are the reference's
-npz artifacts (either package reads the other's). ``serve --config``
-restores the encoder checkpoint of ``--workdir`` (default
-``cfg.train.workdir``) and answers image queries as well as code queries.
+name or a path to a yaml override file. ``train``, ``eval``, ``encode`` and
+``build-index`` run on the config's mesh (``make_mesh(cfg.mesh.n_devices,
+cfg.mesh.data_axis)``, ``n_devices`` 0 meaning every CUDA device), as the
+reference's do, unless ``--gpu i`` names one card, which they then run on
+alone. ``query``, ``serve``, ``bench-scan`` and ``bench-serve`` run on CUDA
+device ``--gpu`` (default 0). Every command fails without CUDA. Galleries
+are the reference's npz artifacts (either package reads the other's).
+``serve --config`` restores the encoder checkpoint of ``--workdir``
+(default ``cfg.train.workdir``) and answers image queries as well as code
+queries.
 ``bench-scan`` and ``bench-serve`` print ``bench_scan.run_bench`` and
 ``bench_serve.run_serving_bench`` as one JSON line each.
 """
@@ -47,11 +52,23 @@ def _load_config(spec: str):
     return get_config(spec)
 
 
+def _mesh(cfg, gpu):
+    """The mesh of an experiment command: the config's without ``--gpu``,
+    the one card ``--gpu`` names with it."""
+    from hashgan_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from hashgan_tpu_torch.utils.device import set_numerics
+
+    if gpu is not None:
+        return Mesh([_device(gpu)], cfg.mesh.data_axis)
+    set_numerics()
+    return make_mesh(cfg.mesh.n_devices, cfg.mesh.data_axis)
+
+
 def _experiment(args):
     from hashgan_tpu_torch.train.loop import Experiment
 
-    return Experiment(_load_config(args.config), workdir=args.workdir,
-                      device=_device(args.gpu))
+    cfg = _load_config(args.config)
+    return Experiment(cfg, workdir=args.workdir, mesh=_mesh(cfg, args.gpu))
 
 
 def cmd_train(args) -> None:
@@ -158,8 +175,8 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser(prog="hashgan_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    def with_gpu(parser, what):
-        parser.add_argument("--gpu", type=int, default=0,
+    def with_gpu(parser, what, default=0):
+        parser.add_argument("--gpu", type=int, default=default,
                             help=f"index of the CUDA device that {what}")
         return parser
 
@@ -167,7 +184,8 @@ def main(argv=None) -> None:
         parser.add_argument("--config", required=True,
                             help="preset name or yaml override file")
         parser.add_argument("--workdir", default=None)
-        return with_gpu(parser, "runs the experiment")
+        return with_gpu(parser, "runs the experiment alone (default: the "
+                                "config's mesh)", default=None)
 
     t = with_config(sub.add_parser("train", help="train the GAN (stage 1) "
                                                  "and the encoder (stage 2)"))

@@ -13,14 +13,17 @@ an n-position mesh, as the reference's does: one PC-WGAN cycle and one
 stage-II step with generated images, both data-parallel
 (``parallel/data_parallel.py``), and the four sharded top-k engines over a
 gallery split on the mesh (K2-K5 and K7 launch once a shard on the card;
-the CPU runs their plain twins). ``devices=None`` takes the first n CUDA
-devices (``make_mesh``, which refuses more than exist); the tests pass
-``["cpu"] * n``, and the chip smoke a virtual mesh ``["cuda:0"] * n``.
+the CPU runs their plain twins). ``devices=None`` takes the mesh that
+``dryrun_devices`` picks: the first n CUDA devices where there are n, else
+the first one n times, a virtual mesh (the reference forces n CPU devices
+onto a one-chip host), so ``dryrun_multichip(n)`` runs on one card at any
+n; without CUDA it raises, as every entry point of the port does. The
+tests pass ``["cpu"] * n``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,6 +57,19 @@ def entry(device: Optional[torch.device | str] = None
     return fn, (params, images)
 
 
+def dryrun_devices(n_devices: int) -> List[torch.device]:
+    """The devices of ``dryrun_multichip``'s mesh when the caller names
+    none: the first ``n_devices`` distinct CUDA devices where there are that
+    many, else CUDA device 0 repeated ``n_devices`` times. Raises as
+    ``require_cuda`` does without CUDA; never falls back to the CPU."""
+    from hashgan_tpu_torch.utils.device import require_cuda
+
+    require_cuda()
+    if torch.cuda.device_count() >= n_devices:
+        return [torch.device("cuda", i) for i in range(n_devices)]
+    return [torch.device("cuda", 0)] * n_devices
+
+
 def dryrun_multichip(n_devices: int, devices: Optional[Sequence] = None
                      ) -> Dict[str, Dict[str, float]]:
     """One GAN cycle, one co-training step and the sharded engines under a
@@ -85,7 +101,8 @@ def dryrun_multichip(n_devices: int, devices: Optional[Sequence] = None
     from hashgan_tpu_torch.utils.device import set_numerics
 
     set_numerics()
-    mesh = make_mesh(n_devices, devices=devices)
+    mesh = make_mesh(n_devices, devices=(dryrun_devices(n_devices)
+                                         if devices is None else devices))
     dev = mesh.devices[0]
     base = get_config("config2")
     cfg = dataclasses.replace(

@@ -1,2 +1,2 @@
-"""Device selection, numeric settings, metrics logging, checkpoints and
-gallery artifacts."""
+"""Device selection, numeric settings, metrics logging, checkpoints,
+gallery artifacts, and tracing and timing (``profiling``)."""

@@ -147,6 +147,30 @@ def test_grouped_scans_script_on_cpu():
     assert all(t["min_ms"] > 0 for t in out["device_ms"].values())
 
 
+def test_large_k_select_script_on_cpu():
+    """The large-k selection script at a toy size, k above MAX_K: every
+    select and compaction witnessed equal to the sort engine and to the
+    host scanner before it is timed, every time > 0."""
+    sys.path.insert(0, REPO)
+    from hashgan_tpu_torch.ops.mxu_large_k import MAX_K
+    from scripts.bench_large_k_select_torch import run
+
+    ks = (300, 1000)
+    assert min(ks) > MAX_K
+    out = run("cpu", n=4096, queries=5, bits=64, ks=ks, batches=2,
+              primitives=((2048, 300), (1024, 1000)))
+    names = ["sortdecode", "twolevel", "radix_scatter", "radix_searchsorted"]
+    assert out["witnessed"] == {"ks": list(ks), "selects": names,
+                                "sort_engine_queries": 5, "native_queries": 5}
+    times = {key: v for key, v in out.items() if key.endswith("_ms")}
+    assert set(times) == {f"k{k}_{s}_ms" for k in ks for s in names} | {
+        "prim_topk_w2048_k300_ms", "prim_sortonly_w2048_k300_ms",
+        "prim_topk_w1024_k1000_ms", "prim_sortonly_w1024_k1000_ms"}
+    assert all(v > 0 for v in times.values())
+    assert all(out[f"k{k}_{s}_cmp_per_sec_e9"] > 0 for k in ks for s in names)
+    assert out["device"]["platform"] == "cpu"
+
+
 def test_entry_matches_jax_entry():
     """AlexNet 48-bit on 8 images of 64x64: the JAX entry()'s weights
     carried over, the same images, equal packed words."""

@@ -710,3 +710,31 @@ def test_virtual_mesh_step_equals_mesh_1(dev):
         near += int((d <= 1e-5).sum())
         total += d.numel()
     assert near >= 0.999 * total, (near, total)
+
+
+def test_dryrun_multichip_without_devices(dev, capsys):
+    """``dryrun_multichip(2)`` as the reference's callers call it, with no
+    devices: two distinct cards where there are two, else a virtual mesh of
+    card 0 twice."""
+    from hashgan_tpu_torch.entry import dryrun_multichip
+
+    out = dryrun_multichip(2)
+    assert "dryrun_multichip(2): ok" in capsys.readouterr().out
+    assert set(out) == {"gan", "encoder"}
+
+
+def test_native_topk_equals_the_sort_engine(dev):
+    """The host scanner, independent of the CUDA kernels, against the sort
+    engine (kernel 4 and torch.topk) at 64 queries x 262,144 x 128 bits,
+    k = 1,000."""
+    from hashgan_tpu_torch.ops import native
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    words = torch.randint(-2**31, 2**31 - 1, (262144, 4), dtype=torch.int32,
+                          device=dev, generator=g)
+    q = torch.randint(-2**31, 2**31 - 1, (64, 4), dtype=torch.int32,
+                      device=dev, generator=g)
+    d, i = hamming_scan_topk(q, words.t().contiguous(), k=1000)
+    nd, ni = native.hamming_topk_native(q.cpu(), words.cpu(), 1000)
+    np.testing.assert_array_equal(d.cpu().numpy(), nd)
+    np.testing.assert_array_equal(i.cpu().numpy(), ni)

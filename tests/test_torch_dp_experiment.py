@@ -10,7 +10,9 @@ at dim 8 and a SmallCNN 32-bit encoder, float32, batch 4).
   the encoder and the optimisers' states).
 - A checkpoint written at a mesh of 4 restores at mesh 1, to the very
   parameters, and trains on.
-- ``dryrun_multichip(2)`` and ``(4)`` on ``["cpu"] * n``.
+- ``dryrun_multichip(2)`` and ``(4)`` on ``["cpu"] * n``; without
+  ``devices`` it takes n distinct cards where there are n, else card 0 n
+  times, and raises without CUDA.
 """
 
 import dataclasses
@@ -20,7 +22,8 @@ import pytest
 import torch
 
 from hashgan_tpu_torch.configs import get_config
-from hashgan_tpu_torch.entry import dryrun_multichip
+from hashgan_tpu_torch import parallel
+from hashgan_tpu_torch.entry import dryrun_devices, dryrun_multichip
 from hashgan_tpu_torch.parallel import Mesh
 from hashgan_tpu_torch.train.loop import Experiment
 from test_torch_gan_train import _gan_tensors, _tiny
@@ -120,3 +123,38 @@ def test_dryrun_multichip_on_cpu_devices(n, capsys):
     assert {"d_loss", "g_loss"} <= set(out["gan"])
     assert "hash_loss" in out["encoder"]
     assert f"dryrun_multichip({n}): ok" in capsys.readouterr().out
+
+
+class _Stop(Exception):
+    """Ends dryrun_multichip once it has asked for its mesh."""
+
+
+@pytest.mark.parametrize("count", [0, 1, 4])
+def test_dryrun_multichip_picks_its_devices(count, monkeypatch):
+    """Without ``devices``, ``dryrun_multichip(n)`` builds its mesh on the
+    first n distinct CUDA devices where there are n, else on CUDA device 0
+    n times (a virtual mesh: the reference forces n CPU devices onto a
+    one-chip host), and without CUDA it raises rather than run on the CPU.
+    The device counts are patched."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: count > 0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
+    asked = []
+
+    def make_mesh(n_devices=0, axis="data", devices=None):
+        asked.append((n_devices, devices))
+        raise _Stop
+
+    monkeypatch.setattr(parallel, "make_mesh", make_mesh)
+    for n in (2, 4):
+        if count == 0:
+            for call in (dryrun_devices, dryrun_multichip):
+                with pytest.raises(RuntimeError, match="no CUDA device"):
+                    call(n)
+            continue
+        want = ([torch.device("cuda", i) for i in range(n)] if count >= n
+                else [torch.device("cuda", 0)] * n)
+        assert dryrun_devices(n) == want
+        with pytest.raises(_Stop):
+            dryrun_multichip(n)
+        assert asked.pop() == (n, want)
+    assert not asked

@@ -61,6 +61,7 @@ from hashgan_tpu_torch.models.convert import (
     generator_flax_to_torch,
 )
 from hashgan_tpu_torch.models.encoders import SmallCNNEncoder
+from hashgan_tpu_torch.parallel import Mesh
 from hashgan_tpu_torch.train.gan_step import make_gan_cycle
 from hashgan_tpu_torch.train.hash_step import make_encoder_train_step
 from hashgan_tpu_torch.train.loop import Experiment
@@ -547,7 +548,8 @@ def test_cli_stage_branches(tmp_path, monkeypatch, capsys):
     --stage all trains both from scratch."""
     import yaml
 
-    monkeypatch.setattr(cli, "_device", lambda gpu: torch.device("cpu"))
+    monkeypatch.setattr(cli, "_mesh",
+                        lambda cfg, gpu: Mesh(["cpu"], cfg.mesh.data_axis))
     raw = {"preset": "config2",
            "data": {"n_classes": K, "n_train": 64, "n_query": 8,
                     "n_database": 40},

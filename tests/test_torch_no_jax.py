@@ -1,7 +1,7 @@
 """The port imports no JAX, and its chip smoke refuses to run without a GPU.
 
-Every module of hashgan_tpu_torch, chip_smoke.py and the port's scan-variants
-script load in a fresh
+Every module of hashgan_tpu_torch, chip_smoke.py and the port's scripts
+load in a fresh
 interpreter in which the JAX package ``hashgan_tpu`` cannot be imported,
 without jax, flax or optax entering sys.modules. Subprocesses are needed
 because this pytest process has imported jax already (tests/conftest.py).
@@ -39,6 +39,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 import scripts.bench_scan_variants_torch
+import scripts.bench_large_k_select_torch
 print(json.dumps({"modules": names, "jax": sorted(
     m for m in ("jax", "jaxlib", "flax", "optax") if m in sys.modules)}))
 """
@@ -64,14 +65,20 @@ def test_port_imports_no_jax():
                  "utils.images", "data.cifar10", "data.lists",
                  "data.loader", "parallel", "parallel.mesh",
                  "parallel.sharded_scan", "parallel.data_parallel",
-                 "eval.sharded"):
+                 "eval.sharded", "ops.ref_numpy", "ops.native",
+                 "utils.profiling"):
         assert f"hashgan_tpu_torch.{name}" in got["modules"]
-    assert len(got["modules"]) >= 37
+    assert len(got["modules"]) >= 40
     assert got["jax"] == [], f"JAX modules imported by the port: {got['jax']}"
 
 
+PORT_SCRIPTS = sorted(
+    os.path.relpath(f, REPO) for pattern in ("*_torch.py", "profile_torch_*.py")
+    for f in glob.glob(os.path.join(REPO, "scripts", pattern)))
+
+
 @pytest.mark.parametrize("where", ["chip_smoke.py", "hashgan_tpu_torch",
-                                   "scripts/bench_scan_variants_torch.py"])
+                                   *PORT_SCRIPTS])
 def test_no_import_statement_reaches_jax(where):
     path = os.path.join(REPO, where)
     files = ([path] if path.endswith(".py") else

@@ -32,6 +32,7 @@ from hashgan_tpu_torch.data.cifar10 import load_cifar10_dir, make_cifar10_splits
 from hashgan_tpu_torch.data.lists import parse_list_file, write_list_file
 from hashgan_tpu_torch.data.loader import load_list_dataset
 from hashgan_tpu_torch.data.synthetic import make_splits
+from hashgan_tpu_torch.parallel import Mesh
 from hashgan_tpu_torch.train.loop import Experiment
 from hashgan_tpu_torch.utils.checkpoint import (
     check_provenance,
@@ -239,7 +240,8 @@ def test_cli_trains_cifar10_step2_on_an_archive(tmp_path, monkeypatch,
 
     from hashgan_tpu_torch import cli
 
-    monkeypatch.setattr(cli, "_device", lambda gpu: torch.device("cpu"))
+    monkeypatch.setattr(cli, "_mesh",
+                        lambda cfg, gpu: Mesh(["cpu"], cfg.mesh.data_axis))
     d, _, _ = _archive(str(tmp_path / "arch"), "bin", per_batch=20, seed=2)
     with open(os.path.join(os.path.dirname(os.path.dirname(
             os.path.abspath(__file__))), "configs", "cifar10_step2.yaml")) as f:

@@ -1,7 +1,9 @@
 """The port's YAML configs and CLI on the CPU: ``train`` / ``eval`` /
 ``encode`` / ``build-index`` / ``query`` through ``cli.main`` on a tiny
 config1 yaml, resume through the CLI, and the ``QueryEngine`` built from
-the artifacts.
+the artifacts; which devices each command asks for (the config's mesh for
+the four experiment commands unless ``--gpu`` names one card, one device
+for ``query`` and ``serve``).
 """
 
 import json
@@ -16,6 +18,7 @@ from hashgan_tpu_torch.configs import get_config, load_yaml
 from hashgan_tpu_torch.data.synthetic import make_splits
 from hashgan_tpu_torch.ops.hamming import hamming_distance
 from hashgan_tpu_torch.ops.pack import pack_codes
+from hashgan_tpu_torch.parallel import Mesh
 from hashgan_tpu_torch.train.loop import Experiment
 
 
@@ -31,6 +34,8 @@ eval: {{R: 50}}
 @pytest.fixture
 def tiny_yaml(tmp_path, monkeypatch):
     monkeypatch.setattr(cli, "_device", lambda gpu: torch.device("cpu"))
+    monkeypatch.setattr(cli, "_mesh",
+                        lambda cfg, gpu: Mesh(["cpu"], cfg.mesh.data_axis))
     p = tmp_path / "tiny.yaml"
     p.write_text(TINY_YAML.format(wd=str(tmp_path / "wd")))
     return str(p)
@@ -114,3 +119,79 @@ def test_query_engine_from_artifacts_serves_images(tiny_yaml, tmp_path,
     d = hamming_distance(pq, pack_codes(exp.encode_split("database")))
     order = np.argsort(d.numpy(), axis=1, kind="stable")[:, :5]
     np.testing.assert_array_equal(res.indices, order)
+
+
+class _Stop(Exception):
+    """Ends a command once it has chosen its devices."""
+
+
+MESH_YAML = "preset: config1\nmesh: {n_devices: 3, data_axis: shards}\n"
+
+
+@pytest.mark.parametrize("gpu", [None, 1])
+@pytest.mark.parametrize("cmd", [["train"], ["eval"],
+                                 ["encode", "--out", "codes.npz"],
+                                 ["build-index", "--out", "gallery.npz"]])
+def test_experiment_commands_run_on_the_configs_mesh(cmd, gpu, tmp_path,
+                                                     monkeypatch):
+    """As in the reference, ``train``, ``eval``, ``encode`` and
+    ``build-index`` build their Experiment on ``make_mesh(cfg.mesh.n_devices,
+    cfg.mesh.data_axis)``; ``--gpu i`` keeps them on that one card."""
+    from hashgan_tpu_torch.parallel import mesh as mesh_lib
+    from hashgan_tpu_torch.train import loop
+
+    asked = {"make_mesh": [], "device": [], "experiment": []}
+
+    def make_mesh(n_devices=0, axis="data", devices=None):
+        asked["make_mesh"].append((n_devices, axis, devices))
+        return Mesh(["cpu"] * 3, axis)
+
+    def experiment(cfg, workdir=None, device=None, use_mesh=True, mesh=None):
+        asked["experiment"].append((device, mesh))
+        raise _Stop
+
+    monkeypatch.setattr(mesh_lib, "make_mesh", make_mesh)
+    monkeypatch.setattr(loop, "Experiment", experiment)
+    monkeypatch.setattr(cli, "_device", lambda g: asked["device"].append(g)
+                        or torch.device("cpu"))
+    path = tmp_path / "mesh.yaml"
+    path.write_text(MESH_YAML)
+    argv = [cmd[0], "--config", str(path), *cmd[1:]]
+    with pytest.raises(_Stop):
+        cli.main(argv + ([] if gpu is None else ["--gpu", str(gpu)]))
+    if gpu is None:
+        assert asked == {"make_mesh": [(3, "shards", None)], "device": [],
+                         "experiment": [(None, Mesh(["cpu"] * 3, "shards"))]}
+    else:
+        assert asked == {"make_mesh": [], "device": [gpu],
+                         "experiment": [(None, Mesh(["cpu"], "shards"))]}
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["query"], 0), (["query", "--gpu", "2"], 2), (["serve"], 0),
+    (["serve", "--config", "config1"], 0), (["serve", "--gpu", "1"], 1)])
+def test_query_and_serve_stay_on_one_device(argv, want, monkeypatch):
+    """``query`` and ``serve`` load the gallery (and the encoder) onto the
+    one device ``--gpu`` names, 0 by default, and build no mesh, as in the
+    reference."""
+    from hashgan_tpu_torch.index import PackedGallery, QueryEngine
+    from hashgan_tpu_torch.parallel import mesh as mesh_lib
+
+    asked = {"device": [], "load": []}
+
+    def load(*args, device=None, mesh=None):
+        asked["load"].append((device, mesh))
+        raise _Stop
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("query / serve built a mesh")
+
+    monkeypatch.setattr(mesh_lib, "make_mesh", refuse)
+    monkeypatch.setattr(PackedGallery, "load", staticmethod(load))
+    monkeypatch.setattr(QueryEngine, "from_artifacts", staticmethod(load))
+    monkeypatch.setattr(cli, "_device", lambda g: asked["device"].append(g)
+                        or torch.device("cpu"))
+    with pytest.raises(_Stop):
+        cli.main([argv[0], "--gallery", "g.npz", *argv[1:]])
+    assert asked == {"device": [want],
+                     "load": [(torch.device("cpu"), None)]}

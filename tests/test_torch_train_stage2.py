@@ -17,6 +17,7 @@ import torch
 
 from hashgan_tpu_torch import cli
 from hashgan_tpu_torch.configs import get_config, load_yaml
+from hashgan_tpu_torch.parallel import Mesh
 from hashgan_tpu_torch.train.loop import Experiment
 from hashgan_tpu_torch.train.state import create_encoder_state
 
@@ -106,7 +107,8 @@ def test_stage2_without_gan_samples_does_not_warn(tmp_path, monkeypatch):
     exp = Experiment(cfg, device="cpu")
     assert not any(GAN_WARNING in m for m in _train_recording(exp, 2))
     assert exp.encoder_state.step == 2
-    monkeypatch.setattr(cli, "_device", lambda gpu: torch.device("cpu"))
+    monkeypatch.setattr(cli, "_mesh",
+                        lambda cfg, gpu: Mesh(["cpu"], cfg.mesh.data_axis))
     with warnings.catch_warnings(record=True) as rec:
         warnings.simplefilter("always")
         cli.main(["train", "--config", path, "--stage", "2", "--iters", "1"])
@@ -144,7 +146,8 @@ def test_stage2_restores_the_checkpoint_as_the_reference(tmp_path,
         tmp_path, encoder={"arch": "small_cnn", "bits": 32,
                            "compute_dtype": "float32"},
         use_gan_samples=samples)
-    monkeypatch.setattr(cli, "_device", lambda gpu: torch.device("cpu"))
+    monkeypatch.setattr(cli, "_mesh",
+                        lambda cfg, gpu: Mesh(["cpu"], cfg.mesh.data_axis))
     sides = {"port": (load_yaml, Experiment, cli.main, {"device": "cpu"}),
              "reference": (load_yaml_jax, ExperimentJax, cli_jax.main,
                            {"use_mesh": False})}
