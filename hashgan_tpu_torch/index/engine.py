@@ -26,6 +26,7 @@ from hashgan_tpu_torch.parallel.sharded_scan import (
     sharded_mxu_topk_large,
 )
 from hashgan_tpu_torch.train.hash_step import make_encode_fn
+from hashgan_tpu_torch.utils.profiling import count, span
 
 
 @dataclasses.dataclass
@@ -46,6 +47,7 @@ class QueryEngine:
                  cfg=None):
         self.encoder = encoder
         self.gallery = gallery
+        self.calls = 0  # queries answered: the id of each one's spans
         self._encode = (make_encode_fn(encoder, cfg) if encoder is not None
                         else None)
 
@@ -76,10 +78,33 @@ class QueryEngine:
 
     def query_codes(self, codes, k: int = 100, mode: str = "exact",
                     with_labels: bool = False) -> QueryResult:
-        codes = torch.as_tensor(codes, dtype=torch.float32).to(
-            self.gallery.device)
-        d, i = self.gallery.topk(pack_codes(codes), k=k, mode=mode)
-        d, i = d.cpu().numpy(), i.cpu().numpy()
+        self.calls += 1
+        with span("query", self.calls):
+            count("query.calls")
+            with span("query.h2d"):
+                codes = torch.as_tensor(codes, dtype=torch.float32).to(
+                    self.gallery.device)
+            return self._answer(codes, k, mode, with_labels)
+
+    def query_images(self, images_u8, k: int = 100, mode: str = "exact",
+                     with_labels: bool = False) -> QueryResult:
+        self.calls += 1
+        with span("query", self.calls):
+            count("query.calls")
+            with span("query.encode"):
+                codes = self.encode(images_u8).to(torch.float32)
+            return self._answer(codes, k, mode, with_labels)
+
+    def _answer(self, codes: torch.Tensor, k: int, mode: str,
+                with_labels: bool) -> QueryResult:
+        """Float32 ``codes`` on the gallery's device -> pack -> top-k ->
+        the (distances, indices) copied to the host."""
+        with span("query.pack"):
+            packed = pack_codes(codes)
+        with span("query.topk"):
+            d, i = self.gallery.topk(packed, k=k, mode=mode)
+        with span("query.result"):  # waits for the device
+            d, i = d.cpu().numpy(), i.cpu().numpy()
         labels = None
         if with_labels:
             # Padding sentinels (index >= n) must not surface a real item's
@@ -90,11 +115,6 @@ class QueryEngine:
                 valid[:, :, None], self.gallery.labels[safe], 0.0
             ).astype(self.gallery.labels.dtype)
         return QueryResult(distances=d, indices=i, labels=labels)
-
-    def query_images(self, images_u8, k: int = 100, mode: str = "exact",
-                     with_labels: bool = False) -> QueryResult:
-        return self.query_codes(self.encode(images_u8), k=k, mode=mode,
-                                with_labels=with_labels)
 
 
 class ServingPipeline:

@@ -18,12 +18,14 @@ Endpoints (all JSON):
 Every k and both modes are answered by ``PackedGallery.topk``'s engines.
 Malformed requests answer HTTP 400 with the message. Requests run under one
 lock: they serialize on the device anyway, and the lock keeps gallery swaps
-atomic.
+atomic. ``/stats`` gives the time requests waited for that lock
+(``lock_wait_ms``) apart from their latency.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import threading
 import time
@@ -32,6 +34,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from hashgan_tpu_torch.index.engine import QueryEngine
+from hashgan_tpu_torch.utils.profiling import span
 
 
 class ServingStats:
@@ -40,6 +43,7 @@ class ServingStats:
         self.requests = collections.Counter()
         self.errors = collections.Counter()
         self.latency_ms = collections.deque(maxlen=window)
+        self.lock_wait_ms = collections.deque(maxlen=window)
 
     def record(self, endpoint: str, dt_ms: float, error: bool = False) -> None:
         with self.lock:
@@ -49,20 +53,26 @@ class ServingStats:
             else:
                 self.latency_ms.append(dt_ms)
 
+    def record_lock_wait(self, dt_ms: float) -> None:
+        """The time one request waited for the service's lock."""
+        with self.lock:
+            self.lock_wait_ms.append(dt_ms)
+
     def snapshot(self) -> dict:
         with self.lock:
-            lat = sorted(self.latency_ms)
-            pct = lambda p: (  # noqa: E731
-                lat[min(len(lat) - 1, int(p * len(lat)))] if lat else None
-            )
             return {
                 "requests": dict(self.requests),
                 "errors": dict(self.errors),
-                "latency_ms": {
-                    "p50": pct(0.50), "p90": pct(0.90), "p99": pct(0.99),
-                    "window": len(lat),
-                },
+                "latency_ms": _percentiles(self.latency_ms),
+                "lock_wait_ms": _percentiles(self.lock_wait_ms),
             }
+
+
+def _percentiles(values) -> dict:
+    v = sorted(values)
+    pct = lambda p: v[min(len(v) - 1, int(p * len(v)))] if v else None  # noqa: E731
+    return {"p50": pct(0.50), "p90": pct(0.90), "p99": pct(0.99),
+            "window": len(v)}
 
 
 class GalleryService:
@@ -74,13 +84,31 @@ class GalleryService:
         self.lock = threading.Lock()
         self.stats = ServingStats()
 
+    @contextlib.contextmanager
+    def _locked(self):
+        """Holds the service's lock for a query; the wait for it is
+        recorded apart from the work (timed only where the lock is taken:
+        two host clock reads then, none where it is free)."""
+        with span("serve.lock_wait"):
+            waited = 0.0
+            if not self.lock.acquire(blocking=False):
+                t0 = time.perf_counter()
+                self.lock.acquire()
+                waited = (time.perf_counter() - t0) * 1e3
+        self.stats.record_lock_wait(waited)
+        try:
+            with span("serve.query"):
+                yield
+        finally:
+            self.lock.release()
+
     def query(self, payload: dict) -> dict:
         k = int(payload.get("k", self.default_k))
         mode = payload.get("mode", "exact")
         if mode not in ("exact", "approx"):
             raise ValueError(f"unknown mode {mode!r}")
         with_labels = bool(payload.get("with_labels", False))
-        with self.lock:
+        with self._locked():
             if "codes" in payload:
                 codes = np.asarray(payload["codes"], dtype=np.float32)
                 if codes.ndim != 2 or codes.shape[1] != self.engine.gallery.bits:

@@ -20,6 +20,8 @@ from typing import Callable, Dict, Tuple
 import torch
 from torch.nn import functional as F
 
+from hashgan_tpu_torch.utils.profiling import span
+
 DApply = Callable[[torch.Tensor, torch.Tensor],
                   Tuple[torch.Tensor, torch.Tensor]]
 
@@ -42,8 +44,9 @@ def penalty_terms(critic_score: Callable[[torch.Tensor], torch.Tensor],
     on every position and averages them over the global batch."""
     e = eps.view(-1, *([1] * (real.dim() - 1)))
     xhat = (e * real + (1.0 - e) * fake).detach().requires_grad_(True)
-    grads, = torch.autograd.grad(critic_score(xhat).sum(), xhat,
-                                 create_graph=True)
+    score = critic_score(xhat).sum()
+    with span("gan.penalty.backward"):
+        grads, = torch.autograd.grad(score, xhat, create_graph=True)
     norms = torch.sqrt(grads.square().sum(dim=(1, 2, 3)) + 1e-12)
     return (norms - 1.0).square()
 

@@ -56,6 +56,7 @@ from hashgan_tpu_torch.ops.groupmin import (
     pad_to_layout,
 )
 from hashgan_tpu_torch.ops.pack import popcount32
+from hashgan_tpu_torch.utils.profiling import span
 
 SUB_G = 16     # columns per subgroup minimum (reference: sub_g=16)
 MODES = ("exact", "approx")
@@ -504,8 +505,10 @@ def winner_columns(packed_q: torch.Tensor, gallery_g: torch.Tensor,
     """Stages 1-2 of the exact engine: the full-key scan (kernel 2) and the
     (Q, m) int64 ids of the m columns holding each query's best column
     minima, the columns the rescan reads."""
-    full, sub = mxu_fullkey_scan(packed_q, gallery_g, valid_n, stride)
-    return _twolevel_topk_min(full, m, submins=sub)[1]
+    with span("scan.keys"):
+        full, sub = mxu_fullkey_scan(packed_q, gallery_g, valid_n, stride)
+    with span("scan.select"):
+        return _twolevel_topk_min(full, m, submins=sub)[1]
 
 
 def decode_keys(keys: torch.Tensor, stride: int, bits: int, n_total: int,
@@ -557,31 +560,43 @@ def mxu_topk(packed_q: torch.Tensor, gallery_g: torch.Tensor,
 
     if mode == "exact" and gallery_pm8 is None:
         cols = winner_columns(packed_q, gallery_g, valid_n, stride, m)
-        rescan = rescan_columns(packed_q, canon_bg_flat, cols, stride, valid_n,
-                                fused=rescan_fused)
-        final, _ = _twolevel_topk_min(rescan, kk)
-        return decode_keys(final, stride, bits, n_total)
+        return _rescan_and_merge(packed_q, canon_bg_flat, cols, stride,
+                                 valid_n, rescan_fused, kk, bits, n_total)
 
-    if gallery_pm8 is not None:
-        dev = gallery_pm8.device
-        if gallery_pm8.dtype == torch.int8:
-            qv = unpack_to_pm8(packed_q)
-            kb = build_key_base_i32(L, c, bits, valid_n, dev)
+    with span("scan.keys"):
+        if gallery_pm8 is not None:
+            dev = gallery_pm8.device
+            if gallery_pm8.dtype == torch.int8:
+                qv = unpack_to_pm8(packed_q)
+                kb = build_key_base_i32(L, c, bits, valid_n, dev)
+            else:
+                qv = unpack_to_pm1(packed_q, gallery_pm8.dtype)
+                kb = build_key_base(L, c, bits, valid_n, dev)
+            min1 = mxu8_groupmin_scan(qv, gallery_pm8, kb)
         else:
-            qv = unpack_to_pm1(packed_q, gallery_pm8.dtype)
-            kb = build_key_base(L, c, bits, valid_n, dev)
-        min1 = mxu8_groupmin_scan(qv, gallery_pm8, kb)
-    else:
-        min1 = mxu_groupmin_scan(packed_q, gallery_g, valid_n)
-    full = _full_column_keys(min1, L, c, stride)
+            min1 = mxu_groupmin_scan(packed_q, gallery_g, valid_n)
+        full = _full_column_keys(min1, L, c, stride)
 
     if mode == "approx":
-        keys, _ = torch.topk(full, m, dim=1, largest=False)
-        d, i = decode_keys(keys, stride, bits, n_total)
-        return pad_sentinels(d, i, kk, bits, n_total)
+        with span("scan.select"):
+            keys, _ = torch.topk(full, m, dim=1, largest=False)
+        with span("scan.merge"):
+            d, i = decode_keys(keys, stride, bits, n_total)
+            return pad_sentinels(d, i, kk, bits, n_total)
 
-    _, cols = _twolevel_topk_min(full, m)
-    rescan = rescan_columns(packed_q, canon_bg_flat, cols, stride, valid_n,
-                            fused=rescan_fused)
-    final, _ = _twolevel_topk_min(rescan, kk)
-    return decode_keys(final, stride, bits, n_total)
+    with span("scan.select"):
+        _, cols = _twolevel_topk_min(full, m)
+    return _rescan_and_merge(packed_q, canon_bg_flat, cols, stride, valid_n,
+                             rescan_fused, kk, bits, n_total)
+
+
+def _rescan_and_merge(packed_q, canon_bg_flat, cols, stride, valid_n,
+                      rescan_fused, kk, bits, n_total):
+    """Stages 3-4 of the exact engine: the winner columns' rescan, then the
+    kk smallest keys decoded."""
+    with span("scan.rescan"):
+        rescan = rescan_columns(packed_q, canon_bg_flat, cols, stride,
+                                valid_n, fused=rescan_fused)
+    with span("scan.merge"):
+        final, _ = _twolevel_topk_min(rescan, kk)
+        return decode_keys(final, stride, bits, n_total)

@@ -51,6 +51,7 @@ from hashgan_tpu_torch.parallel.data_parallel import (
 )
 from hashgan_tpu_torch.parallel.mesh import Mesh
 from hashgan_tpu_torch.train.state import GanState
+from hashgan_tpu_torch.utils.profiling import count, span
 
 Draws = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -70,6 +71,11 @@ def cycle_draws(seed: int, step: int, n_critic: int, batch: int,
     return z_critic, eps, torch.randn(batch, z_dim, generator=gen)
 
 
+# the spans of each network's backward and update
+_CRITIC = ("gan.critic.backward", "gan.critic.optim")
+_GENERATOR = ("gan.generator.backward", "gan.generator.optim")
+
+
 def _apply_grads(params, grads, opt, sched) -> None:
     for p, g in zip(params, grads):
         p.grad = g
@@ -78,12 +84,15 @@ def _apply_grads(params, grads, opt, sched) -> None:
         sched.step()
 
 
-def _step(replicas: ReplicaSet, loss: torch.Tensor, opt, sched) -> None:
+def _step(replicas: ReplicaSet, loss: torch.Tensor, opt, sched,
+          spans: Tuple[str, str]) -> None:
     """Every position's gradients of ``loss``, summed on the master, and
     the master's update."""
-    grads = torch.autograd.grad(loss, replicas.parameters())
-    _apply_grads(list(replicas.master.parameters()), replicas.reduce(grads),
-                 opt, sched)
+    with span(spans[0]):
+        grads = replicas.reduce(torch.autograd.grad(loss,
+                                                    replicas.parameters()))
+    with span(spans[1]):
+        _apply_grads(list(replicas.master.parameters()), grads, opt, sched)
 
 
 def _gathered(parts) -> Tuple[torch.Tensor, ...]:
@@ -114,6 +123,12 @@ def make_gan_cycle(cfg, mesh: Optional[Mesh] = None) -> Callable:
 
     def cycle(state: GanState, images_u8, labels,
               draws: Optional[Draws] = None) -> Dict[str, torch.Tensor]:
+        with span("gan.cycle", state.step):
+            count("train.steps")
+            return _cycle(state, images_u8, labels, draws)
+
+    def _cycle(state: GanState, images_u8, labels,
+               draws: Optional[Draws]) -> Dict[str, torch.Tensor]:
         gs, ds = g_replicas(state.generator), d_replicas(state.discriminator)
         devs = gs.devices
         images = shard_rows(devs, images_u8, dim=1)
@@ -128,33 +143,36 @@ def make_gan_cycle(cfg, mesh: Optional[Mesh] = None) -> Callable:
         for k in range(nc):
             ds.sync()
             labs_k = [y[k] for y in labs]
-            with torch.no_grad():
-                fakes = generator_shards(gs.modules, [z[k] for z in z_critic],
-                                         labs_k, train=True, update=False)
-            parts = _gathered(
-                critic_parts(d, to_gan_range(x[k]), f, y, e[k])
-                for d, x, f, y, e in zip(ds.modules, images, fakes, labs_k,
-                                         eps))
-            loss, d_metrics = critic_loss_from_parts(
-                *parts, gather_rows(labs_k), **loss_kw)
-            _step(ds, loss, state.d_opt, state.d_sched)
+            with span("gan.critic.forward"):
+                with torch.no_grad():
+                    fakes = generator_shards(
+                        gs.modules, [z[k] for z in z_critic], labs_k,
+                        train=True, update=False)
+                parts = _gathered(
+                    critic_parts(d, to_gan_range(x[k]), f, y, e[k])
+                    for d, x, f, y, e in zip(ds.modules, images, fakes,
+                                             labs_k, eps))
+                loss, d_metrics = critic_loss_from_parts(
+                    *parts, gather_rows(labs_k), **loss_kw)
+            _step(ds, loss, state.d_opt, state.d_sched, _CRITIC)
 
         ds.sync()
         labs_g = [y[nc] for y in labs]
-        fakes = generator_shards(gs.modules, z_g, labs_g, train=True,
-                                 update=True)
-        d_fake, aux_fake = _gathered(
-            d(f, y) for d, f, y in zip(ds.modules, fakes, labs_g))
-        loss, g_metrics = generator_loss_from_parts(
-            d_fake, aux_fake, gather_rows(labs_g),
-            acgan_scale_g=gan.acgan_scale_g, multi_label=multi)
-        _step(gs, loss, state.g_opt, state.g_sched)
+        with span("gan.generator.forward"):
+            fakes = generator_shards(gs.modules, z_g, labs_g, train=True,
+                                     update=True)
+            d_fake, aux_fake = _gathered(
+                d(f, y) for d, f, y in zip(ds.modules, fakes, labs_g))
+            loss, g_metrics = generator_loss_from_parts(
+                d_fake, aux_fake, gather_rows(labs_g),
+                acgan_scale_g=gan.acgan_scale_g, multi_label=multi)
+        _step(gs, loss, state.g_opt, state.g_sched, _GENERATOR)
 
         g = state.generator
         if gan.ema_decay > 0 and state.g_ema is not None:
             # the running averages move at the same horizon, so sampling
             # with EMA weights normalises with statistics that match them
-            with torch.no_grad():
+            with span("gan.ema.optim"), torch.no_grad():
                 for ema, live in (
                         (state.g_ema, dict(g.named_parameters())),
                         (state.g_ema_stats, dict(g.named_buffers()))):

@@ -61,6 +61,7 @@ from hashgan_tpu_torch.parallel.data_parallel import (
 )
 from hashgan_tpu_torch.parallel.mesh import Mesh, shard_batch
 from hashgan_tpu_torch.train.state import EncoderState
+from hashgan_tpu_torch.utils.profiling import count, span
 
 
 def wml_loss(codes: torch.Tensor, labels: torch.Tensor, cfg,
@@ -89,12 +90,22 @@ def encoder_loss_and_grad(encoder: nn.Module, x: torch.Tensor,
     and backpropagate: the gradients are left in the parameters' ``.grad``
     (set anew, not accumulated). ``dropout`` is the step's dropout noise,
     for an encoder that drops (AlexNet). Returns (loss, metrics)."""
+    loss, metrics = encoder_loss(encoder, x, labels, cfg, sample_weight,
+                                 dropout)
+    loss.backward()
+    return loss, metrics
+
+
+def encoder_loss(encoder: nn.Module, x: torch.Tensor, labels: torch.Tensor,
+                 cfg, sample_weight: Optional[torch.Tensor] = None,
+                 dropout: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``encoder_loss_and_grad``'s forward: the encoder in train mode with
+    its gradients cleared, its codes of ``x`` and their WML loss."""
     encoder.train()
     encoder.zero_grad(set_to_none=True)
     codes = encoder(x) if dropout is None else encoder(x, dropout=dropout)
-    loss, metrics = wml_loss(codes, labels, cfg, sample_weight)
-    loss.backward()
-    return loss, metrics
+    return wml_loss(codes, labels, cfg, sample_weight)
 
 
 def add_fakes(x: torch.Tensor, labels: torch.Tensor, cfg,
@@ -201,22 +212,28 @@ def update_step(state: EncoderState, images_u8: torch.Tensor,
     on the device already, as a CUDA graph of this function has them.
     Returns the metrics as 0-dim tensors on the device."""
     dev = images_u8.device
-    x = _augment(images_u8, draws.flip, draws.crop, cfg)
-    weights = None
-    if sample is not None:
-        x, labels, weights = add_fakes(x, labels, cfg, sample,
-                                       _on(draws.z, dev))
-    if cfg.encoder.input_resize > 0:
-        x = alexnet_train_geometry(
-            None, x, cfg.encoder.input_resize, cfg.encoder.resize_base,
-            offsets=None if draws.geometry is None else _on(draws.geometry,
-                                                             dev))
-    if dropout is None and draws.dropout_seed is not None:
-        dropout = dropout_noise(draws.dropout_seed, x.shape[0], dev)
-    _, metrics = encoder_loss_and_grad(state.module, x, labels, cfg,
-                                       sample_weight=weights,
-                                       dropout=dropout)
-    state.optimizer.step()
+    with span("enc.forward"):
+        x = _augment(images_u8, draws.flip, draws.crop, cfg)
+        weights = None
+        if sample is not None:
+            with span("enc.fakes.forward"):
+                x, labels, weights = add_fakes(x, labels, cfg, sample,
+                                               _on(draws.z, dev))
+        if cfg.encoder.input_resize > 0:
+            with span("enc.geometry.forward"):
+                x = alexnet_train_geometry(
+                    None, x, cfg.encoder.input_resize,
+                    cfg.encoder.resize_base,
+                    offsets=None if draws.geometry is None
+                    else _on(draws.geometry, dev))
+        if dropout is None and draws.dropout_seed is not None:
+            dropout = dropout_noise(draws.dropout_seed, x.shape[0], dev)
+        loss, metrics = encoder_loss(state.module, x, labels, cfg,
+                                     sample_weight=weights, dropout=dropout)
+    with span("enc.backward"):
+        loss.backward()
+    with span("enc.optim"):
+        state.optimizer.step()
     return {k: v.detach() for k, v in metrics.items()}
 
 
@@ -224,8 +241,9 @@ def advance(state: EncoderState) -> None:
     """The host's half of a step: the lr schedule moves on (LambdaLR
     computes the new lr in float64 and writes it into each group, filling
     a group's lr tensor where it holds one) and the step count."""
-    if state.scheduler is not None:
-        state.scheduler.step()
+    with span("enc.optim"):
+        if state.scheduler is not None:
+            state.scheduler.step()
     state.step += 1
 
 
@@ -286,19 +304,23 @@ def sharded_update_step(state: EncoderState, replicas: ReplicaSet,
     if draws.dropout_seed is not None:
         noise = list(zip(*(by_position(t) for t in dropout_noise(
             draws.dropout_seed, b + n_fake, devs[0]))))
-    codes = []
-    for m, x, nz in zip(replicas.modules, xs, noise):
-        m.train()
-        codes.append(m(x) if nz is None else m(x, dropout=nz))
-    codes = gather_rows([c[:n] for c, n in zip(codes, rows)]
-                        + [c[n:] for c, n in zip(codes, rows)])
-    loss, metrics = wml_loss(codes, all_labels, cfg,
-                             fake_weights(cfg, b, n_fake, devs[0])
-                             if n_fake else None)
-    grads = torch.autograd.grad(loss, replicas.parameters())
-    for p, g in zip(replicas.master.parameters(), replicas.reduce(grads)):
-        p.grad = g
-    state.optimizer.step()
+    with span("enc.forward"):
+        codes = []
+        for m, x, nz in zip(replicas.modules, xs, noise):
+            m.train()
+            codes.append(m(x) if nz is None else m(x, dropout=nz))
+        codes = gather_rows([c[:n] for c, n in zip(codes, rows)]
+                            + [c[n:] for c, n in zip(codes, rows)])
+        loss, metrics = wml_loss(codes, all_labels, cfg,
+                                 fake_weights(cfg, b, n_fake, devs[0])
+                                 if n_fake else None)
+    with span("enc.backward"):
+        grads = replicas.reduce(torch.autograd.grad(loss,
+                                                    replicas.parameters()))
+    with span("enc.optim"):
+        for p, g in zip(replicas.master.parameters(), grads):
+            p.grad = g
+        state.optimizer.step()
     return {k: v.detach() for k, v in metrics.items()}
 
 
@@ -333,19 +355,24 @@ def make_encoder_train_step(cfg, mesh: Optional[Mesh] = None) -> Callable:
              crop: Optional[torch.Tensor] = None,
              geometry: Optional[torch.Tensor] = None,
              ) -> Dict[str, torch.Tensor]:
-        b = (images_u8.shape[0] if torch.is_tensor(images_u8)
-             else sum(x.shape[0] for x in images_u8))
-        n_fake = 0 if sample is None else n_fakes(cfg, b)
-        draws = draw_step(cfg, seed, state.step, b, n_fake, flip=flip,
-                          crop=crop, z=z, geometry=geometry)
-        if replicas is None:
-            return compute_step(state, images_u8, labels, draws, cfg, sample)
-        rs = replicas(state.module)
-        rs.sync()
-        metrics = sharded_update_step(state, rs, images_u8, labels, draws,
-                                      cfg, sample)
-        advance(state)
-        return metrics
+        with span("enc.step", state.step):
+            count("train.steps")
+            b = (images_u8.shape[0] if torch.is_tensor(images_u8)
+                 else sum(x.shape[0] for x in images_u8))
+            n_fake = 0 if sample is None else n_fakes(cfg, b)
+            with span("enc.draws"):
+                draws = draw_step(cfg, seed, state.step, b, n_fake,
+                                  flip=flip, crop=crop, z=z,
+                                  geometry=geometry)
+            if replicas is None:
+                return compute_step(state, images_u8, labels, draws, cfg,
+                                    sample)
+            rs = replicas(state.module)
+            rs.sync()
+            metrics = sharded_update_step(state, rs, images_u8, labels,
+                                          draws, cfg, sample)
+            advance(state)
+            return metrics
 
     return step
 

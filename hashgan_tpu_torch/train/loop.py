@@ -110,6 +110,7 @@ from hashgan_tpu_torch.utils.checkpoint import (
 from hashgan_tpu_torch.utils.device import require_cuda, set_numerics
 from hashgan_tpu_torch.utils.images import save_image_grid
 from hashgan_tpu_torch.utils.logging import MetricsLogger
+from hashgan_tpu_torch.utils.profiling import phase, span
 
 
 class Experiment:
@@ -137,7 +138,8 @@ class Experiment:
         self.workdir = workdir or cfg.train.workdir
         os.makedirs(self.workdir, exist_ok=True)
         self.logger = MetricsLogger(self.workdir)
-        self.splits = make_splits(cfg.data)
+        with phase("setup.splits"):
+            self.splits = make_splits(cfg.data)
         # capturable Adam for stage II's CUDA graph, which mesh 1 replays
         self.encoder_state = create_encoder_state(
             cfg, self.device, capturable=(
@@ -196,7 +198,11 @@ class Experiment:
             seed=cfg.train.seed, device=self.device,
             n_batches=cfg.gan.n_critic + 1, mesh=self.mesh)
         for _ in range(iters):
-            boundaries(self._gan_cycle(st, *self._positions(next(batches))))
+            with span("train.feed"):
+                batch = next(batches)
+            metrics = self._gan_cycle(st, *self._positions(batch))
+            with span("train.boundary"):
+                boundaries(metrics)
         return means
 
     def _positions(self, batch):
@@ -392,8 +398,12 @@ class Experiment:
             seed=cfg.train.seed + 1, device=self.device,
             pair_balanced=pair_balanced, mesh=self.mesh)
         for _ in range(iters):
-            boundaries(self._enc_step(state, *self._positions(next(batches)),
-                                      sample=sample))
+            with span("train.feed"):
+                batch = next(batches)
+            metrics = self._enc_step(state, *self._positions(batch),
+                                     sample=sample)
+            with span("train.boundary"):
+                boundaries(metrics)
         return means
 
     def _device_source(self, seed: int, n_batches: int = 1,

@@ -1,0 +1,13 @@
+"""optim_ms_per_step.train: the self time of the updates (the spans whose
+names end in ``.optim``: Adam, the learning-rate schedule, the EMA), in
+milliseconds a GAN cycle or encoder step, from the program's spans in the
+traced window."""
+
+from hgbench import program_spans
+
+
+def read(run):
+    snap = program_spans.snapshot()
+    t = program_spans.self_ns_ending(snap, ".optim")
+    return None if t is None else program_spans.per_count(
+        t, "train.steps", 1e6, snap)

@@ -7,8 +7,7 @@
   with forced ties, on uint32 arrays and on the port's int32 words; where
   g++ cannot build it, ``available()`` is False and every function raises
   with g++'s error.
-- ``utils/profiling.py``: ``time_fn``, ``kernel_throughput`` and ``trace``
-  (which leaves a Chrome trace file).
+- ``utils/profiling.py``: ``trace``, which leaves a Chrome trace file.
 """
 
 import json
@@ -22,7 +21,7 @@ from hashgan_tpu.ops import native as native_jax
 from hashgan_tpu.ops import ref_numpy as ref_jax
 from hashgan_tpu_torch.ops import native, ref_numpy
 from hashgan_tpu_torch.ops._build import BUILD_DIR
-from hashgan_tpu_torch.utils.profiling import kernel_throughput, time_fn, trace
+from hashgan_tpu_torch.utils.profiling import trace
 
 
 @pytest.mark.parametrize("bits", [32, 48, 64, 128])
@@ -103,18 +102,6 @@ def test_native_scanner_raises_where_it_cannot_build(tmp_path, monkeypatch):
                  lambda: native.pack_codes_native(np.ones((2, 32)))):
         with pytest.raises(RuntimeError, match="(?s)could not build.*error:"):
             call()
-
-
-def test_time_fn_and_throughput():
-    def f(x):
-        return (x * 2.0,)
-
-    dt = time_fn(f, torch.ones(16), iters=2)
-    assert dt >= 0
-    stats = kernel_throughput(f, torch.ones(16), bytes_accessed=128, ops=16,
-                              iters=2)
-    assert set(stats) == {"seconds", "gbytes_per_sec", "gops_per_sec"}
-    assert stats["gbytes_per_sec"] > 0 and stats["gops_per_sec"] > 0
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
