@@ -26,12 +26,17 @@ it treats each sample alone. The scores, aux logits and penalty terms are
 gathered on the first position, so every mean is over the global batch;
 the gradients are summed there, the master's optimisers step, and the EMA
 moves once. At one position this is the single-device cycle.
+
+The cycle is ``make_gan_update``'s device work, which a CUDA graph can
+capture (``train/graph_step.py::GraphedGanCycle``, at mesh 1 on a card),
+and its host half: the schedules' steps and the GAN step (``cycle_lrs``
+stages a cycle's lrs for the graph, ``advance_gan`` moves them after it).
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -85,13 +90,18 @@ def _apply_grads(params, grads, opt, sched) -> None:
 
 
 def _step(replicas: ReplicaSet, loss: torch.Tensor, opt, sched,
-          spans: Tuple[str, str]) -> None:
+          spans: Tuple[str, str], lr: Optional[torch.Tensor]) -> None:
     """Every position's gradients of ``loss``, summed on the master, and
     the master's update."""
     with span(spans[0]):
         grads = replicas.reduce(torch.autograd.grad(loss,
                                                     replicas.parameters()))
     with span(spans[1]):
+        if lr is not None:
+            # the update's lr, staged on the device; the host moves the
+            # schedule
+            opt.param_groups[0]["lr"].copy_(lr)
+            sched = None
         _apply_grads(list(replicas.master.parameters()), grads, opt, sched)
 
 
@@ -114,6 +124,28 @@ def make_gan_cycle(cfg, mesh: Optional[Mesh] = None) -> Callable:
     which the mesh must divide) or one (n_critic + 1, B / n, ...) chunk a
     position, on its device (a sharded feed's); the state's modules lie on
     the mesh's first device."""
+    update = make_gan_update(cfg, mesh)
+
+    def cycle(state: GanState, images_u8, labels,
+              draws: Optional[Draws] = None) -> Dict[str, torch.Tensor]:
+        with span("gan.cycle", state.step):
+            count("train.steps")
+            metrics = update(state, images_u8, labels, draws)
+            state.step += 1
+            return metrics
+
+    return cycle
+
+
+def make_gan_update(cfg, mesh: Optional[Mesh] = None) -> Callable:
+    """``update(state, images_u8, labels, draws=None, lrs=None) ->
+    metrics``: the device's work of ``make_gan_cycle``'s cycle, which
+    leaves ``state.step`` as it is. Without ``lrs`` each update steps its
+    schedule; with ``lrs`` ((n_critic + 1,) float32 on the device:
+    ``cycle_lrs``) D's lr tensor takes ``lrs[k]`` before critic step k and
+    G's ``lrs[n_critic]`` before its step, the schedules stay (the host
+    moves them: ``advance_gan``), and nothing reads the device: the body
+    that ``GraphedGanCycle`` captures."""
     gan, multi, seed = cfg.gan, cfg.data.multi_label, cfg.train.seed
     nc = gan.n_critic
     mesh = mesh if mesh is not None and mesh.size > 1 else None
@@ -121,14 +153,9 @@ def make_gan_cycle(cfg, mesh: Optional[Mesh] = None) -> Callable:
     loss_kw = dict(gp_lambda=gan.gp_lambda, acgan_scale=gan.acgan_scale,
                    acgan_fake_scale=gan.acgan_fake_scale, multi_label=multi)
 
-    def cycle(state: GanState, images_u8, labels,
-              draws: Optional[Draws] = None) -> Dict[str, torch.Tensor]:
-        with span("gan.cycle", state.step):
-            count("train.steps")
-            return _cycle(state, images_u8, labels, draws)
-
-    def _cycle(state: GanState, images_u8, labels,
-               draws: Optional[Draws]) -> Dict[str, torch.Tensor]:
+    def update(state: GanState, images_u8, labels,
+               draws: Optional[Draws] = None,
+               lrs: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         gs, ds = g_replicas(state.generator), d_replicas(state.discriminator)
         devs = gs.devices
         images = shard_rows(devs, images_u8, dim=1)
@@ -154,7 +181,8 @@ def make_gan_cycle(cfg, mesh: Optional[Mesh] = None) -> Callable:
                                              labs_k, eps))
                 loss, d_metrics = critic_loss_from_parts(
                     *parts, gather_rows(labs_k), **loss_kw)
-            _step(ds, loss, state.d_opt, state.d_sched, _CRITIC)
+            _step(ds, loss, state.d_opt, state.d_sched, _CRITIC,
+                  None if lrs is None else lrs[k])
 
         ds.sync()
         labs_g = [y[nc] for y in labs]
@@ -166,7 +194,8 @@ def make_gan_cycle(cfg, mesh: Optional[Mesh] = None) -> Callable:
             loss, g_metrics = generator_loss_from_parts(
                 d_fake, aux_fake, gather_rows(labs_g),
                 acgan_scale_g=gan.acgan_scale_g, multi_label=multi)
-        _step(gs, loss, state.g_opt, state.g_sched, _GENERATOR)
+        _step(gs, loss, state.g_opt, state.g_sched, _GENERATOR,
+              None if lrs is None else lrs[nc])
 
         g = state.generator
         if gan.ema_decay > 0 and state.g_ema is not None:
@@ -180,7 +209,6 @@ def make_gan_cycle(cfg, mesh: Optional[Mesh] = None) -> Callable:
                     torch._foreach_mul_(e, gan.ema_decay)
                     torch._foreach_add_(e, torch._foreach_mul(
                         [live[k] for k in ema], 1.0 - gan.ema_decay))
-        state.step += 1
 
         metrics = {k: v.detach() for k, v in d_metrics.items()}
         metrics.update({k: v.detach() for k, v in g_metrics.items()})
@@ -196,7 +224,32 @@ def make_gan_cycle(cfg, mesh: Optional[Mesh] = None) -> Callable:
                                                  - base_fake.mean())
         return metrics
 
-    return cycle
+    return update
+
+
+def cycle_lrs(state: GanState, cfg) -> List[float]:
+    """The lr of each update of ``state``'s next cycle, in float64, as its
+    schedules give them: D's ``n_critic`` updates, then G's one."""
+    def lr(sched, k: int) -> float:
+        if sched is None:
+            return cfg.gan.lr
+        return sched.base_lrs[0] * sched.lr_lambdas[0](sched.last_epoch + k)
+
+    nc = cfg.gan.n_critic
+    return ([lr(state.d_sched, k) for k in range(nc)]
+            + [lr(state.g_sched, 0)])
+
+
+def advance_gan(state: GanState, n_critic: int) -> None:
+    """The host's half of a cycle that ``make_gan_update`` took with
+    ``lrs``: each schedule moves past its updates (D's ``n_critic``, G's
+    one), as the eager cycle's ``scheduler.step()`` calls move it, and
+    the GAN step."""
+    for sched, n in ((state.d_sched, n_critic), (state.g_sched, 1)):
+        if sched is not None:
+            for _ in range(n):
+                sched.step()
+    state.step += 1
 
 
 def eval_sampler(g) -> Callable:

@@ -31,8 +31,18 @@ capture or a replay that fails raises; no step falls back to eager on the
 card. On the CPU there is no graph: the same steps run eagerly through the
 same buffers.
 
+Stage I's PC-WGAN cycle replays the same way (``GraphedGanCycle``): one
+graph holds its ``n_critic`` critic steps (G's fakes, D on real and fake,
+the gradient penalty's double backward, D's Adam), the generator step (G's
+batch norms updating, G's Adam), the EMA and the ``d_projection``
+estimate. It reads the cycle's batch, copied into static buffers on the
+device, its draws and the lr of each of its ``n_critic + 1`` updates
+(``gan_step.cycle_lrs``, staged as above). D's lr moves between its
+updates, so the captured body copies lr k into D's lr tensor before critic
+step k; the host steps both schedules after each replay.
+
 This is the mesh-1 path. At a data-parallel mesh above 1 ``Experiment``
-runs ``hash_step.sharded_update_step`` eagerly through its windows: every
+runs ``hash_step.sharded_update_step`` and the GAN cycle eagerly: every
 position trains, with no graph around the step (one graph of the sharded
 step is a lever on record, ROADMAP queue 2).
 """
@@ -45,6 +55,12 @@ from typing import Callable, Dict, Optional
 import torch
 
 from hashgan_tpu_torch.models.alexnet import HIDDEN, dropout_noise
+from hashgan_tpu_torch.train.gan_step import (
+    advance_gan,
+    cycle_draws,
+    cycle_lrs,
+    make_gan_update,
+)
 from hashgan_tpu_torch.train.hash_step import (
     StepDraws,
     advance,
@@ -52,10 +68,58 @@ from hashgan_tpu_torch.train.hash_step import (
     n_fakes,
     update_step,
 )
+from hashgan_tpu_torch.train.state import GanState
+from hashgan_tpu_torch.utils.profiling import count, span
 
 SLOTS = 4    # pinned staging buffers in the ring
 WARMUP = 3   # eager steps before the capture
 _ALIGN = 16  # byte alignment of each field in the packed buffer
+
+
+class _Staging:
+    """The tensors ``like`` names, packed into one static byte buffer on
+    ``device`` (``static``: a view of it a name), refilled through a ring
+    of pinned staging buffers (one pageable buffer on the CPU): ``put``
+    writes one slot on the host and queues its copy into the static buffer
+    on the current stream without blocking. A slot is written again only
+    after the event recorded behind its copy has passed, so the host runs
+    at most ``SLOTS`` calls ahead of the card."""
+
+    def __init__(self, like: Dict[str, torch.Tensor], device: torch.device):
+        self.cuda = device.type == "cuda"
+        self._layout, size = {}, 0
+        for name, t in like.items():
+            self._layout[name] = (size, t.dtype, tuple(t.shape))
+            size += -(-t.numel() * t.element_size() // _ALIGN) * _ALIGN
+        self._buffer = torch.empty(size, dtype=torch.uint8, device=device)
+        self.static = self._views(self._buffer)
+        self._slots = [torch.empty(size, dtype=torch.uint8,
+                                   pin_memory=self.cuda)
+                       for _ in range(SLOTS if self.cuda else 1)]
+        self._slot_views = [self._views(s) for s in self._slots]
+        self._events = [None] * len(self._slots)
+        self._turn = 0
+
+    def _views(self, buf: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return {name: buf[off:off + math.prod(shape) * dt.itemsize]
+                .view(dt).view(shape)
+                for name, (off, dt, shape) in self._layout.items()}
+
+    def put(self, values: Dict[str, object]) -> None:
+        """The host tensors of ``values`` under the names laid out (others
+        are ignored) into the next slot, and the slot's copy queued."""
+        turn = self._turn
+        self._turn = (turn + 1) % len(self._slots)
+        if self._events[turn] is not None:
+            self._events[turn].synchronize()
+        views = self._slot_views[turn]
+        for name, value in values.items():
+            if name in views:
+                views[name].copy_(value)
+        self._buffer.copy_(self._slots[turn], non_blocking=self.cuda)
+        if self.cuda:
+            self._events[turn] = torch.cuda.Event()
+            self._events[turn].record()
 
 
 class GraphedEncoderStep:
@@ -87,18 +151,7 @@ class GraphedEncoderStep:
         fields = {"idx": torch.from_numpy(source.indices(0))}
         fields.update((k, v) for k, v in like._asdict().items()
                       if torch.is_tensor(v))
-        self._layout, size = {}, 0
-        for name, t in fields.items():
-            self._layout[name] = (size, t.dtype, tuple(t.shape))
-            size += -(-t.numel() * t.element_size() // _ALIGN) * _ALIGN
-        self._buffer = torch.empty(size, dtype=torch.uint8, device=self.device)
-        self._static = self._views(self._buffer)
-        self._slots = [torch.empty(size, dtype=torch.uint8,
-                                   pin_memory=self.cuda)
-                       for _ in range(SLOTS if self.cuda else 1)]
-        self._slot_views = [self._views(s) for s in self._slots]
-        self._events = [None] * len(self._slots)
-        self._turn = 0
+        self._staging = _Staging(fields, self.device)
         self._noise = None
         if like.dropout_seed is not None:
             rows = b + self.n_fake
@@ -108,36 +161,20 @@ class GraphedEncoderStep:
         self._warm = 0
         self._graph = None
 
-    def _views(self, buf: torch.Tensor) -> Dict[str, torch.Tensor]:
-        return {name: buf[off:off + math.prod(shape) * dt.itemsize]
-                .view(dt).view(shape)
-                for name, (off, dt, shape) in self._layout.items()}
-
     def _stage(self, step: int) -> None:
         """Draw step ``step`` on the host and queue its copy into the
         static buffers (and its dropout noise) on the current stream."""
         b = self.source.batch_size
         draws = draw_step(self.cfg, self.cfg.train.seed, step, b, self.n_fake)
-        turn = self._turn
-        self._turn = (turn + 1) % len(self._slots)
-        if self._events[turn] is not None:
-            self._events[turn].synchronize()
-        views = self._slot_views[turn]
-        views["idx"].copy_(torch.from_numpy(self.source.indices(step)))
-        for name, value in draws._asdict().items():
-            if name in views:
-                views[name].copy_(value)
-        self._buffer.copy_(self._slots[turn], non_blocking=self.cuda)
-        if self.cuda:
-            self._events[turn] = torch.cuda.Event()
-            self._events[turn].record()
+        self._staging.put({"idx": torch.from_numpy(self.source.indices(step)),
+                           **draws._asdict()})
         if self._noise is not None:
             dropout_noise(draws.dropout_seed, self._noise[0].shape[0],
                           self.device, out=self._noise)
 
     def _body(self) -> Dict[str, torch.Tensor]:
         """The captured work: gather, ``update_step``, the metrics' sum."""
-        s = self._static
+        s = self._staging.static
         images, labels = self.source.gather(s["idx"])
         draws = StepDraws(s["flip"], s.get("crop"), s.get("z"),
                           s.get("geometry"), None)
@@ -196,3 +233,114 @@ class GraphedEncoderStep:
         means = self._sums / n
         return {k: means[i] for i, k in enumerate(self._keys)}
 
+
+
+class GraphedGanCycle:
+    """``make_gan_cycle``'s cycle of ``state`` (a ``GanState`` on one card
+    with capturable Adams: ``create_gan_state(..., capturable=True)``) as
+    one CUDA graph replayed a cycle. It is called as that cycle is,
+    ``(state, images_u8, labels, draws=None) -> metrics`` with ``state``
+    its own: the first ``WARMUP`` calls run the cycle eagerly on a side
+    stream, the next captures it, and that call and every later one replay
+    it. ``step`` runs one cycle eagerly through the same buffers. Each
+    call's metrics are 0-dim tensors of one copy of the graph's, so they
+    stay valid through later cycles. Built once per state: a restore of
+    the optimisers' state needs a new one."""
+
+    def __init__(self, state: GanState, cfg):
+        self.state, self.cfg = state, cfg
+        self.device = next(state.generator.parameters()).device
+        groups = [o.param_groups[0] for o in (state.d_opt, state.g_opt)]
+        if self.device.type != "cuda" or not all(
+                torch.is_tensor(g["lr"]) and g["capturable"] for g in groups):
+            raise ValueError("a CUDA graph of the GAN cycle needs the state "
+                             "on a card, with Adam capturable=True and "
+                             "tensor lrs (create_gan_state(..., "
+                             "capturable=True))")
+        self._lrs = [g["lr"] for g in groups]
+        gan = cfg.gan
+        z, eps, z_g = cycle_draws(cfg.train.seed, 0, gan.n_critic,
+                                  cfg.train.batch_size, gan.z_dim)
+        self._staging = _Staging({"z": z, "eps": eps, "z_g": z_g,
+                                  "lrs": torch.zeros(gan.n_critic + 1)},
+                                 self.device)
+        self._update = make_gan_update(cfg)
+        self._batch = None   # static (images, labels), made at the first call
+        self._keys = None
+        self._values = None  # the body's metrics, stacked
+        self._warm = 0
+        self._graph = None
+
+    def _stage(self, images_u8, labels, draws) -> None:
+        """Queue the cycle's batch (device to device) and its draws and
+        lrs (through the pinned ring) into the static buffers, on the
+        current stream."""
+        if self._batch is None:
+            self._batch = tuple(torch.empty(x.shape, dtype=x.dtype,
+                                            device=self.device)
+                                for x in (images_u8, labels))
+        for static, x in zip(self._batch, (images_u8, labels)):
+            if x.shape != static.shape or x.dtype != static.dtype:
+                raise ValueError(f"a batch of {tuple(x.shape)} {x.dtype} "
+                                 f"for a graph of {tuple(static.shape)} "
+                                 f"{static.dtype}")
+            static.copy_(x, non_blocking=True)
+        st, gan = self.state, self.cfg.gan
+        if draws is None:
+            draws = cycle_draws(self.cfg.train.seed, st.step, gan.n_critic,
+                                images_u8.shape[1], gan.z_dim)
+        lrs = torch.tensor(cycle_lrs(st, self.cfg), dtype=torch.float64)
+        self._staging.put({"z": draws[0], "eps": draws[1], "z_g": draws[2],
+                           "lrs": lrs})
+
+    def _body(self) -> None:
+        """The captured work: ``make_gan_update`` on the static buffers,
+        its metrics stacked."""
+        s = self._staging.static
+        metrics = self._update(self.state, *self._batch,
+                               (s["z"], s["eps"], s["z_g"]), lrs=s["lrs"])
+        self._keys = list(metrics)
+        self._values = torch.stack(list(metrics.values()))
+
+    def _finish(self) -> Dict[str, torch.Tensor]:
+        """The cycle's metrics, copied, and the host's half of it."""
+        values = self._values.clone()
+        advance_gan(self.state, self.cfg.gan.n_critic)
+        return dict(zip(self._keys, values.unbind()))
+
+    def step(self, images_u8, labels, draws=None) -> Dict[str, torch.Tensor]:
+        """One cycle, eagerly; its metrics."""
+        self._stage(images_u8, labels, draws)
+        self._body()
+        return self._finish()
+
+    def __call__(self, state: GanState, images_u8, labels,
+                 draws=None) -> Dict[str, torch.Tensor]:
+        if state is not self.state:
+            raise ValueError("this GraphedGanCycle holds another GanState")
+        if any(o.param_groups[0]["lr"] is not lr for o, lr in zip(
+                (state.d_opt, state.g_opt), self._lrs)):
+            raise RuntimeError("the optimisers' lr tensors were replaced "
+                               "after this cycle was built (a restore?): "
+                               "build a new GraphedGanCycle")
+        with span("gan.cycle", state.step):
+            count("train.steps")
+            if self._graph is None and self._warm < WARMUP:
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    self._stage(images_u8, labels, draws)
+                    self._body()
+                torch.cuda.current_stream().wait_stream(side)
+                self._warm += 1
+                return self._finish()
+            if self._graph is None:
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    self._body()
+                self._graph = graph
+            with span("gan.replay"):
+                count("gan.replays")
+                self._stage(images_u8, labels, draws)
+                self._graph.replay()
+            return self._finish()

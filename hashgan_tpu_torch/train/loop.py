@@ -23,6 +23,10 @@ then Hamming-ranking evaluation and the index.
   the device (``ResidentEncoder``). Batches, steps and codes are the host
   feed's bit for bit; on the card the graph's capturable Adam rounds its
   lr as float32;
+- stage I's cycle, on either feed, is one CUDA graph replayed a cycle at
+  mesh 1 on a card (``train/graph_step.py::GraphedGanCycle``, after
+  ``WARMUP`` eager cycles), and eager on the CPU and at a mesh above 1.
+  Its capturable Adams round their lrs as float32 too;
 - ``evaluate``: encode -> pack -> Hamming kernel -> exact MAP@R and P@H<=r
   (or, past ``streaming_threshold``, tie-aware MAP from distance
   histograms), and the PR / precision@top-N curves in the workdir;
@@ -100,7 +104,10 @@ from hashgan_tpu_torch.train.gan_step import (
     make_gan_cycle,
     sample_images,
 )
-from hashgan_tpu_torch.train.graph_step import GraphedEncoderStep
+from hashgan_tpu_torch.train.graph_step import (
+    GraphedEncoderStep,
+    GraphedGanCycle,
+)
 from hashgan_tpu_torch.train.state import create_encoder_state, create_gan_state
 from hashgan_tpu_torch.utils.checkpoint import (
     CheckpointManager,
@@ -148,10 +155,14 @@ class Experiment:
         self.encoder = self.encoder_state.module
         self._encode = make_encode_fn(self.encoder, cfg)
         self._saturation_warned = False
-        self.gan_state = (create_gan_state(cfg, self.device) if cfg.use_gan
-                          else None)
-        self._gan_cycle = (make_gan_cycle(cfg, train_mesh) if cfg.use_gan
-                           else None)
+        # stage I replays one CUDA graph a cycle on one card
+        self._gan_graphs = not self._dp and self.device.type == "cuda"
+        self.gan_state = (create_gan_state(cfg, self.device,
+                                           capturable=self._gan_graphs)
+                          if cfg.use_gan else None)
+        self._eager_gan_cycle = (make_gan_cycle(cfg, train_mesh)
+                                 if cfg.use_gan else None)
+        self._graphed_gan: Optional[GraphedGanCycle] = None
         self._enc_uses_gan = cfg.use_gan and cfg.train.use_gan_samples
         self._sources: Dict[tuple, DeviceBatchSource] = {}
         self._graphed: Optional[GraphedEncoderStep] = None
@@ -204,6 +215,16 @@ class Experiment:
             with span("train.boundary"):
                 boundaries(metrics)
         return means
+
+    def _gan_cycle(self, state, images_u8, labels,
+                   draws=None) -> Dict[str, torch.Tensor]:
+        """One cycle of ``state``: ``make_gan_cycle``'s, replayed as one
+        CUDA graph at mesh 1 on a card, else eager."""
+        if not self._gan_graphs:
+            return self._eager_gan_cycle(state, images_u8, labels, draws)
+        if self._graphed_gan is None:
+            self._graphed_gan = GraphedGanCycle(state, self.cfg)
+        return self._graphed_gan(state, images_u8, labels, draws)
 
     def _positions(self, batch):
         """A feed's batch as the steps take it: at a mesh above 1, (one
@@ -626,9 +647,11 @@ class Experiment:
         check_provenance(self.workdir, self._data_provenance())
         st = self.encoder_state
         st.module.load_state_dict(saved["encoder"])
-        _load_encoder_optimizer(st, saved["optimizer"], saved["scheduler"])
+        _load_optimizer(st.optimizer, st.scheduler, saved["optimizer"],
+                        saved["scheduler"])
         st.step = int(saved["step"])
-        self._graphed = None  # it holds the optimiser state just replaced
+        # the graphs hold the optimiser state just replaced
+        self._graphed = self._graphed_gan = None
         gan = saved.get("gan")
         if self.gan_state is not None and gan is not None:
             self._restore_gan(gan)
@@ -640,9 +663,8 @@ class Experiment:
         gs.discriminator.load_state_dict(gan["discriminator"])
         for opt, sched, name in ((gs.g_opt, gs.g_sched, "g"),
                                  (gs.d_opt, gs.d_sched, "d")):
-            opt.load_state_dict(gan[f"{name}_opt"])
-            if sched is not None and gan[f"{name}_sched"] is not None:
-                sched.load_state_dict(gan[f"{name}_sched"])
+            _load_optimizer(opt, sched, gan[f"{name}_opt"],
+                            gan[f"{name}_sched"])
         gs.step = int(gan["step"])
         if gs.g_ema is not None and gan["g_ema"] is not None:
             stats = gan["g_ema_stats"]
@@ -666,38 +688,37 @@ class Experiment:
         return metrics
 
 
-def _load_encoder_optimizer(st, opt_state: dict,
-                            sched_state: Optional[dict]) -> None:
-    """The saved Adam state under the current config's parameter groups.
+def _load_optimizer(opt: torch.optim.Optimizer, sched, opt_state: dict,
+                    sched_state: Optional[dict]) -> None:
+    """The saved Adam state under the current config's parameter groups,
+    for the encoder, G or D, plain or capturable either way. The encoder's
     ``parameter_groups`` orders the parameters backbone then hash layer in
     one group or in two, so the saved per-parameter state keeps its
     indices in either layout; a schedule keeps its update count, and each
     group's lr is the current base lr at that count."""
-    groups = st.optimizer.state_dict()["param_groups"]
+    groups = opt.state_dict()["param_groups"]
     n_saved = sum(len(g["params"]) for g in opt_state["param_groups"])
     n_now = sum(len(g["params"]) for g in groups)
     if n_saved != n_now:
         raise ValueError(
             f"the checkpoint's optimiser holds {n_saved} parameters and this "
-            f"config's encoder {n_now}: the states cannot be mapped")
-    st.optimizer.load_state_dict({"state": opt_state["state"],
-                                  "param_groups": groups})
-    for g in st.optimizer.param_groups:
+            f"config's module {n_now}: the states cannot be mapped")
+    opt.load_state_dict({"state": opt_state["state"], "param_groups": groups})
+    for g in opt.param_groups:
         if not g["capturable"]:
             # a capturable optimiser's step counts lie on the device (the
             # graph's, at mesh 1); plain Adam reads its own on the host
             for p in g["params"]:
-                state = st.optimizer.state.get(p, {})
+                state = opt.state.get(p, {})
                 if torch.is_tensor(state.get("step")):
                     state["step"] = state["step"].cpu()
-    sched = st.scheduler
     if sched is None or sched_state is None:
         return
     sched.load_state_dict({**sched_state, "base_lrs": list(sched.base_lrs),
                            "lr_lambdas": [None] * len(groups)})
     lrs = [base * factor(sched.last_epoch)
            for base, factor in zip(sched.base_lrs, sched.lr_lambdas)]
-    for g, lr in zip(st.optimizer.param_groups, lrs):
+    for g, lr in zip(opt.param_groups, lrs):
         if torch.is_tensor(g["lr"]):
             g["lr"].fill_(lr)  # a capturable optimiser's lr stays a tensor
         else:

@@ -81,24 +81,34 @@ def make_encoder_tx(module: nn.Module, cfg, capturable: bool = False
                            capturable=capturable)
     sched = _linear_decay(opt, cfg.iters) if cfg.decay_lr else None
     if capturable:
-        device = next(module.parameters()).device
-        for g in opt.param_groups:
-            g["lr"] = torch.tensor(g["lr"], dtype=torch.float32,
-                                   device=device)
+        _tensor_lrs(opt, module)
     return opt, sched
 
 
-def make_gan_tx(module: nn.Module, cfg, updates_per_iter: int = 1
+def _tensor_lrs(opt: torch.optim.Optimizer, module: nn.Module) -> None:
+    """Each group's lr as a float32 tensor on ``module``'s device (made
+    after the schedule, which reads the float lrs as its base)."""
+    device = next(module.parameters()).device
+    for g in opt.param_groups:
+        g["lr"] = torch.tensor(g["lr"], dtype=torch.float32, device=device)
+
+
+def make_gan_tx(module: nn.Module, cfg, updates_per_iter: int = 1,
+                capturable: bool = False
                 ) -> Tuple[torch.optim.Adam,
                            Optional[torch.optim.lr_scheduler.LambdaLR]]:
     """(Adam with ``cfg.beta1`` / ``cfg.beta2``, linear decay over
     ``cfg.iters * updates_per_iter`` updates or None) for a G or D under a
-    ``GanConfig``."""
+    ``GanConfig``. ``capturable`` as in ``make_encoder_tx`` (a CUDA graph
+    replays the cycle: ``train/graph_step.py::GraphedGanCycle``)."""
     opt = torch.optim.Adam(module.parameters(), lr=cfg.lr,
-                           betas=(cfg.beta1, cfg.beta2), eps=1e-8)
-    if not cfg.decay_lr:
-        return opt, None
-    return opt, _linear_decay(opt, cfg.iters * updates_per_iter)
+                           betas=(cfg.beta1, cfg.beta2), eps=1e-8,
+                           capturable=capturable)
+    sched = (_linear_decay(opt, cfg.iters * updates_per_iter)
+             if cfg.decay_lr else None)
+    if capturable:
+        _tensor_lrs(opt, module)
+    return opt, sched
 
 
 def create_encoder_state(cfg, device: torch.device | str,
@@ -144,15 +154,18 @@ class GanState:
 _GAN_INIT_TAG = 0x6A17  # G and D draw their init apart from the encoder
 
 
-def create_gan_state(cfg, device: torch.device | str) -> GanState:
+def create_gan_state(cfg, device: torch.device | str,
+                     capturable: bool = False) -> GanState:
     """G and D of ``cfg`` with seeded initial weights (drawn on the CPU
     from (``cfg.train.seed``, a tag of their own)) on ``device``, fresh
-    optimisers, and distinct EMA copies when ``cfg.gan.ema_decay > 0``."""
+    optimisers (``capturable``: see ``make_gan_tx``), and distinct EMA
+    copies when ``cfg.gan.ema_decay > 0``."""
     seed = int(np.random.SeedSequence([cfg.train.seed, _GAN_INIT_TAG])
                .generate_state(1, np.uint64)[0]) & ((1 << 63) - 1)
     g, d = build_gan(cfg, device=device, seed=seed)
-    g_opt, g_sched = make_gan_tx(g, cfg.gan)
-    d_opt, d_sched = make_gan_tx(d, cfg.gan, updates_per_iter=cfg.gan.n_critic)
+    g_opt, g_sched = make_gan_tx(g, cfg.gan, capturable=capturable)
+    d_opt, d_sched = make_gan_tx(d, cfg.gan, updates_per_iter=cfg.gan.n_critic,
+                                 capturable=capturable)
     ema = ema_stats = None
     if cfg.gan.ema_decay > 0:
         ema = {k: p.detach().clone() for k, p in g.named_parameters()}

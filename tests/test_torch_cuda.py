@@ -606,6 +606,158 @@ def test_failed_capture_raises(dev):
     torch.cuda.synchronize()
 
 
+def _gan_graph_cfg(case="config2", **train):
+    """config2's GAN as it is (dim 128, batch 64, bf16), its lr decaying
+    over 20 cycles, with ``case``: an EMA, the projection critic or
+    multi-hot labels; a SmallCNN encoder and small splits."""
+    import dataclasses
+
+    from hashgan_tpu_torch.configs import get_config
+
+    cfg = get_config("config2")
+    gan = {"iters": 20, "ema_decay": 0.999 if case == "ema" else 0.0,
+           "d_projection": case == "d_projection"}
+    return dataclasses.replace(
+        cfg,
+        data=dataclasses.replace(cfg.data, multi_label=case == "multi_label",
+                                 n_train=512, n_query=8, n_database=40),
+        gan=dataclasses.replace(cfg.gan, **gan),
+        encoder=dataclasses.replace(cfg.encoder, arch="small_cnn",
+                                    input_resize=0),
+        train=dataclasses.replace(cfg.train, **train))
+
+
+def _gan_batches(cfg, dev, n):
+    """``n`` seeded (images, labels) stacks of a cycle on the card."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    nc, b, k = cfg.gan.n_critic, cfg.train.batch_size, cfg.data.n_classes
+    out = []
+    for _ in range(n):
+        images = torch.randint(0, 256, (nc + 1, b, 32, 32, 3),
+                               dtype=torch.uint8, device=dev, generator=g)
+        if cfg.data.multi_label:
+            labels = (torch.rand(nc + 1, b, k, device=dev, generator=g)
+                      < 0.3).float()
+        else:
+            labels = torch.nn.functional.one_hot(torch.randint(
+                0, k, (nc + 1, b), device=dev, generator=g), k).float()
+        out.append((images, labels))
+    return out
+
+
+def _assert_gan_states_equal(a, b):
+    assert a.step == b.step
+    for m in ("generator", "discriminator"):
+        for (name, x), y in zip(getattr(a, m).state_dict().items(),
+                                getattr(b, m).state_dict().values()):
+            assert torch.equal(x, y), (m, name)  # G's running averages too
+    for ema in ("g_ema", "g_ema_stats"):
+        if getattr(a, ema) is not None:
+            for name, x in getattr(a, ema).items():
+                assert torch.equal(x, getattr(b, ema)[name]), (ema, name)
+    for opt, sched in (("d_opt", "d_sched"), ("g_opt", "g_sched")):
+        oa, ob = getattr(a, opt), getattr(b, opt)
+        for sa, sb in zip(oa.state.values(), ob.state.values()):
+            for key in ("exp_avg", "exp_avg_sq", "step"):
+                assert torch.equal(sa[key], sb[key]), (opt, key)
+        assert torch.equal(oa.param_groups[0]["lr"], ob.param_groups[0]["lr"])
+        assert getattr(a, sched).last_epoch == getattr(b, sched).last_epoch
+
+
+@pytest.mark.parametrize("case", ["config2", "ema", "d_projection",
+                                  "multi_label"])
+def test_graphed_gan_cycles_equal_eager_cycles(dev, case):
+    """Twelve PC-WGAN cycles with the lr decaying, as one CUDA graph
+    replayed after the warm-up cycles, and twelve eager cycles through the
+    same buffers, from one initial state: the same parameters, running
+    averages, EMA, Adam moments and step counts, lrs, schedules, GAN step
+    and every cycle's metrics, bit for bit."""
+    from hashgan_tpu_torch.train.graph_step import WARMUP, GraphedGanCycle
+    from hashgan_tpu_torch.train.state import create_gan_state
+
+    set_numerics()
+    cfg = _gan_graph_cfg(case)
+    batches = _gan_batches(cfg, dev, 12)
+    states = [create_gan_state(cfg, dev, capturable=True) for _ in range(2)]
+    graphed = GraphedGanCycle(states[0], cfg)
+    got = [graphed(states[0], x, y) for x, y in batches]
+    assert graphed._graph is not None and WARMUP < 12
+    eager = GraphedGanCycle(states[1], cfg)
+    want = [eager.step(x, y) for x, y in batches]
+    torch.cuda.synchronize()
+    assert states[0].step == 12
+    _assert_gan_states_equal(*states)
+    assert states[0].d_opt.param_groups[0]["lr"] < cfg.gan.lr / 2
+    for m, w in zip(got, want):
+        assert list(m) == list(w)
+        for k in m:
+            assert torch.equal(m[k], w[k]), k
+    assert ("wasserstein_noproj" in got[0]) == (case == "d_projection")
+    assert all(torch.isfinite(v) for m in got for v in m.values())
+
+
+def test_failed_gan_capture_raises(dev, monkeypatch):
+    """A cycle that reads a value back to the host cannot be captured: the
+    capture raises, after the warm-up's eager cycles, and no cycle is
+    taken eagerly in its place."""
+    from hashgan_tpu_torch.train import gan_step
+    from hashgan_tpu_torch.train.graph_step import WARMUP, GraphedGanCycle
+    from hashgan_tpu_torch.train.state import create_gan_state
+
+    set_numerics()
+    cfg = _gan_graph_cfg()
+    st = create_gan_state(cfg, dev, capturable=True)
+    graphed = GraphedGanCycle(st, cfg)
+    loss_fn = gan_step.critic_loss_from_parts
+
+    def read_back(*args, **kwargs):
+        loss, metrics = loss_fn(*args, **kwargs)
+        float(metrics["d_loss"])  # a device -> host read
+        return loss, metrics
+
+    monkeypatch.setattr(gan_step, "critic_loss_from_parts", read_back)
+    batches = _gan_batches(cfg, dev, WARMUP + 1)
+    for x, y in batches[:WARMUP]:
+        graphed(st, x, y)
+    with pytest.raises(RuntimeError):
+        graphed(st, *batches[WARMUP])
+    assert st.step == WARMUP and graphed._graph is None
+    torch.cuda.synchronize()
+
+
+def test_graphed_gan_resume_is_bit_exact(dev, tmp_path):
+    """Experiment.train_gan on the card (one graph a cycle): 6 cycles,
+    a checkpoint at a replayed cycle, a fresh Experiment restoring it
+    (warm-up and capture anew) and 6 more equal 12 straight cycles bit for
+    bit; the card's capturable checkpoint restores on the CPU into plain
+    Adam, its step counts on the host."""
+    from hashgan_tpu_torch.train.loop import Experiment
+
+    cfg = _gan_graph_cfg(log_every=2, sample_every=10**6,
+                         checkpoint_every=10**6, eval_every=10**6)
+    straight = Experiment(cfg, workdir=str(tmp_path / "a"), device=dev)
+    straight.train_gan(12)
+    first = Experiment(cfg, workdir=str(tmp_path / "b"), device=dev)
+    first.train_gan(6)
+    assert first._graphed_gan._graph is not None
+    first.save_checkpoint()
+    resumed = Experiment(cfg, workdir=str(tmp_path / "b"), device=dev)
+    assert resumed.restore_checkpoint() and resumed.gan_state.step == 6
+    resumed.train_gan(6)
+    assert resumed._graphed_gan._graph is not None
+    torch.cuda.synchronize()
+    _assert_gan_states_equal(straight.gan_state, resumed.gan_state)
+
+    on_cpu = Experiment(cfg, workdir=str(tmp_path / "b"), device="cpu")
+    assert on_cpu.restore_checkpoint() and on_cpu.gan_state.step == 6
+    for opt in (on_cpu.gan_state.d_opt, on_cpu.gan_state.g_opt):
+        assert isinstance(opt.param_groups[0]["lr"], float)
+        assert all(s["step"].device.type == "cpu"
+                   for s in opt.state.values())
+    on_cpu.train_gan(1)
+    assert on_cpu.gan_state.step == 7
+
+
 @pytest.mark.parametrize("nd", [2, 4])
 def test_virtual_mesh_gallery_equals_single_device(dev, nd):
     """A 70,000 x 128-bit gallery split over a virtual mesh of ``nd``

@@ -17,7 +17,13 @@ at a tiny size (G and D dim 8, z 8, batch 4, two critic steps a cycle,
 - the stacked GAN batch feed, the sample-quality numbers, the template
   classifier, the PNG grid, the stage-1 yamls and the ``_cal`` presets;
 - a tiny ``train_gan`` with every boundary, resume 3 + 3 == 6 bit for bit,
-  the checkpoint migrations, and the CLI's ``--stage 1|2|all``.
+  the checkpoint migrations, and the CLI's ``--stage 1|2|all``;
+- what the card's CUDA graph of the cycle (``GraphedGanCycle``) stages and
+  keeps, on the CPU: ``cycle_lrs`` == the lr each of a cycle's updates
+  takes from the schedules, across cycles and a restore; a capturable GAN
+  Adam's checkpoint loads into plain Adam and back; ``_gan_cycle`` stays
+  the eager cycle on the CPU, at mesh 1 and 2 (the card's tests of the
+  graph are in ``test_torch_cuda.py``).
 """
 
 import dataclasses
@@ -62,9 +68,10 @@ from hashgan_tpu_torch.models.convert import (
 )
 from hashgan_tpu_torch.models.encoders import SmallCNNEncoder
 from hashgan_tpu_torch.parallel import Mesh
-from hashgan_tpu_torch.train.gan_step import make_gan_cycle
+from hashgan_tpu_torch.train.gan_step import cycle_lrs, make_gan_cycle
+from hashgan_tpu_torch.train.graph_step import WARMUP, GraphedGanCycle
 from hashgan_tpu_torch.train.hash_step import make_encoder_train_step
-from hashgan_tpu_torch.train.loop import Experiment
+from hashgan_tpu_torch.train.loop import Experiment, _load_optimizer
 from hashgan_tpu_torch.train.state import (
     EncoderState,
     create_gan_state,
@@ -583,3 +590,92 @@ def test_cli_stage_branches(tmp_path, monkeypatch, capsys):
     assert set(json.loads(out.out.strip().splitlines()[-1])) == {
         "map_at_20", "precision_at_h2"}
     assert steps(tmp_path / "all") == [1, 2]
+
+
+def _record_lrs(st):
+    """Each update's lr as the optimiser reads it, D's and G's, in order."""
+    seen = []
+    for opt in (st.d_opt, st.g_opt):
+        opt.register_step_pre_hook(
+            lambda o, *_: seen.append(o.param_groups[0]["lr"]))
+    return seen
+
+
+@pytest.mark.parametrize("restored", [False, True])
+def test_staged_lrs_follow_the_schedules(tmp_path, restored):
+    """``cycle_lrs`` before each cycle (what the graph stages) equals the
+    lr each of its n_critic + 1 updates then takes from the decaying
+    schedules, in float64, cycle after cycle; and so after a restore in a
+    fresh Experiment."""
+    cfg = _tiny_exp_cfg(tmp_path, checkpoint_every=10**6)
+    exp = Experiment(cfg, device="cpu")
+    if restored:
+        exp.train_gan(3)
+        exp.save_checkpoint()
+        exp = Experiment(cfg, device="cpu")
+        assert exp.restore_checkpoint() and exp.gan_state.step == 3
+    st = exp.gan_state
+    seen = _record_lrs(st)
+    lrs = []
+    for _ in range(3):
+        lrs += cycle_lrs(st, cfg)
+        exp.train_gan(1)
+    assert seen == lrs
+    assert len(set(lrs)) > NC + 1  # the decay moved them
+
+
+@pytest.mark.parametrize("name", ["g", "d"])
+def test_capturable_gan_adam_checkpoints_cross(tmp_path, name):
+    """A plain GAN Adam's state (two cycles in) loads into a capturable
+    one, whose lr stays a float32 tensor and its step counts float32, and
+    back into a plain one, whose lr is the float schedule's again: the
+    moments, step counts and schedule survive both ways."""
+    cfg = _tiny_exp_cfg(tmp_path)
+    exp = Experiment(cfg, device="cpu")
+    exp.train_gan(2)
+    st = exp.gan_state
+    opt, sched = getattr(st, f"{name}_opt"), getattr(st, f"{name}_sched")
+    plain_lr = opt.param_groups[0]["lr"]
+    cap = create_gan_state(cfg, "cpu", capturable=True)
+    c_opt, c_sched = getattr(cap, f"{name}_opt"), getattr(cap,
+                                                          f"{name}_sched")
+    _load_optimizer(c_opt, c_sched, opt.state_dict(), sched.state_dict())
+    group = c_opt.param_groups[0]
+    assert group["capturable"] and torch.is_tensor(group["lr"])
+    assert group["lr"].dtype == torch.float32
+    assert float(group["lr"]) == float(torch.tensor(plain_lr,
+                                                    dtype=torch.float32))
+    back = create_gan_state(cfg, "cpu")
+    b_opt, b_sched = getattr(back, f"{name}_opt"), getattr(back,
+                                                           f"{name}_sched")
+    _load_optimizer(b_opt, b_sched, c_opt.state_dict(), c_sched.state_dict())
+    group = b_opt.param_groups[0]
+    assert not group["capturable"] and group["lr"] == plain_lr
+    assert b_sched.last_epoch == sched.last_epoch
+    for c in (c_opt, b_opt):
+        for s0, s1 in zip(opt.state.values(), c.state.values()):
+            for key in ("exp_avg", "exp_avg_sq"):
+                assert torch.equal(s0[key], s1[key]), key
+            assert float(s1["step"]) == float(s0["step"])
+    assert all(s["step"].dtype == torch.float32
+               for s in c_opt.state.values())
+
+
+@pytest.mark.parametrize("n", [1, 2])
+def test_gan_cycle_stays_eager_off_the_card(tmp_path, n):
+    """On the CPU, at mesh 1 and 2, ``_gan_cycle`` is the eager cycle past
+    the graph's warm-up, with plain Adam; the graph refuses such a state."""
+    cfg = _tiny_exp_cfg(tmp_path)
+    exp = Experiment(cfg, mesh=Mesh(["cpu"] * n))
+    calls = []
+    eager = exp._eager_gan_cycle
+    exp._eager_gan_cycle = lambda *a: calls.append(1) or eager(*a)
+    exp.train_gan(WARMUP + 2)
+    st = exp.gan_state
+    assert len(calls) == WARMUP + 2 and st.step == WARMUP + 2
+    assert exp._graphed_gan is None
+    for opt in (st.d_opt, st.g_opt):
+        assert not opt.param_groups[0]["capturable"]
+        assert isinstance(opt.param_groups[0]["lr"], float)
+    with pytest.raises(ValueError, match="capturable"):
+        GraphedGanCycle(st, cfg)
