@@ -41,6 +41,11 @@ device, its draws and the lr of each of its ``n_critic + 1`` updates
 updates, so the captured body copies lr k into D's lr tensor before critic
 step k; the host steps both schedules after each replay.
 
+On the host feed at mesh 1 the step runs eagerly, and two parts of it
+replay graphs of their own: the ResNet encoder's six parts
+(``models/encoders.py::ResNetEncoder.replay_parts``) and G's sampler
+(``GraphedSampler``).
+
 This is the mesh-1 path. At a data-parallel mesh above 1 ``Experiment``
 runs ``hash_step.sharded_update_step`` and the GAN cycle eagerly: every
 position trains, with no graph around the step (one graph of the sharded
@@ -233,6 +238,45 @@ class GraphedEncoderStep:
         means = self._sums / n
         return {k: means[i] for i, k in enumerate(self._keys)}
 
+
+class GraphedSampler:
+    """G's sampler ``sample(z, labels)`` (eval mode, no gradient:
+    ``Experiment._sample``) as one CUDA graph, for stage II's eager steps on
+    the host feed: captured at the first call on a card, after one eager
+    call on a side stream, into static copies of that call's inputs, and
+    replayed by every later call of the same shapes, which copies its
+    inputs in first. A call of other shapes, off the card or inside another
+    capture runs ``sample`` itself. The graph reads G's parameters and
+    running averages in place. Each call returns a copy of the graph's
+    output, so a result stays valid through later calls."""
+
+    def __init__(self, sample: Callable):
+        self.sample = sample
+        self._key = None
+        self._graph = None
+
+    def __call__(self, z: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        if not z.is_cuda or torch.cuda.is_current_stream_capturing():
+            return self.sample(z, labels)
+        key = (tuple(z.shape), z.dtype, tuple(labels.shape), labels.dtype)
+        if self._graph is None:
+            self._key = key
+            self._z, self._labels = z.clone(), labels.clone()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                self.sample(self._z, self._labels)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                self._out = self.sample(self._z, self._labels)
+            self._graph = graph
+        if key != self._key:
+            return self.sample(z, labels)
+        self._z.copy_(z)
+        self._labels.copy_(labels)
+        self._graph.replay()
+        return self._out.clone()
 
 
 class GraphedGanCycle:

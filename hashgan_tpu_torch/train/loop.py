@@ -27,6 +27,10 @@ then Hamming-ranking evaluation and the index.
   mesh 1 on a card (``train/graph_step.py::GraphedGanCycle``, after
   ``WARMUP`` eager cycles), and eager on the CPU and at a mesh above 1.
   Its capturable Adams round their lrs as float32 too;
+- stage II on the host feed runs its steps eagerly; at mesh 1 on a card
+  the ResNet encoder replays its six parts as CUDA graphs
+  (``ResNetEncoder.replay_parts``) and G's images come from one graph of
+  the sampler (``GraphedSampler``), bit for bit the eager step's;
 - ``evaluate``: encode -> pack -> Hamming kernel -> exact MAP@R and P@H<=r
   (or, past ``streaming_threshold``, tie-aware MAP from distance
   histograms), and the PR / precision@top-N curves in the workdir;
@@ -107,6 +111,7 @@ from hashgan_tpu_torch.train.gan_step import (
 from hashgan_tpu_torch.train.graph_step import (
     GraphedEncoderStep,
     GraphedGanCycle,
+    GraphedSampler,
 )
 from hashgan_tpu_torch.train.state import create_encoder_state, create_gan_state
 from hashgan_tpu_torch.utils.checkpoint import (
@@ -166,6 +171,15 @@ class Experiment:
         self._enc_uses_gan = cfg.use_gan and cfg.train.use_gan_samples
         self._sources: Dict[tuple, DeviceBatchSource] = {}
         self._graphed: Optional[GraphedEncoderStep] = None
+        # stage II's eager steps on the host feed at mesh 1 on a card: an
+        # encoder that can (the ResNet) replays its parts as CUDA graphs,
+        # and G's images then come from one graph of the sampler
+        self._replay_parts = (hasattr(self.encoder, "replay_parts")
+                              and not self._dp and self.device.type == "cuda"
+                              and not cfg.train.device_data)
+        if self._replay_parts:
+            self.encoder.replay_parts = True
+        self._graphed_sample: Optional[GraphedSampler] = None
         self._resident_encoders: Dict[str, ResidentEncoder] = {}
         self.ckpt = CheckpointManager(self.workdir)
 
@@ -414,6 +428,10 @@ class Experiment:
                         metrics = self._graphed.step()
                 boundaries(metrics)
             return means
+        if sample is not None and self._replay_parts:
+            if self._graphed_sample is None:
+                self._graphed_sample = GraphedSampler(sample)
+            sample = self._graphed_sample
         batches = make_batch_feed(
             self.splits["train"], cfg, start_step=state.step,
             seed=cfg.train.seed + 1, device=self.device,

@@ -609,12 +609,13 @@ def test_failed_capture_raises(dev):
 def _gan_graph_cfg(case="config2", **train):
     """config2's GAN as it is (dim 128, batch 64, bf16), its lr decaying
     over 20 cycles, with ``case``: an EMA, the projection critic or
-    multi-hot labels; a SmallCNN encoder and small splits."""
+    multi-hot labels, or config4's GAN (64 px, 100 classes, dim 128); a
+    SmallCNN encoder and small splits."""
     import dataclasses
 
     from hashgan_tpu_torch.configs import get_config
 
-    cfg = get_config("config2")
+    cfg = get_config("config4" if case == "config4" else "config2")
     gan = {"iters": 20, "ema_decay": 0.999 if case == "ema" else 0.0,
            "d_projection": case == "d_projection"}
     return dataclasses.replace(
@@ -631,9 +632,9 @@ def _gan_batches(cfg, dev, n):
     """``n`` seeded (images, labels) stacks of a cycle on the card."""
     g = torch.Generator(device=dev).manual_seed(3)
     nc, b, k = cfg.gan.n_critic, cfg.train.batch_size, cfg.data.n_classes
-    out = []
+    side, out = cfg.data.image_size, []
     for _ in range(n):
-        images = torch.randint(0, 256, (nc + 1, b, 32, 32, 3),
+        images = torch.randint(0, 256, (nc + 1, b, side, side, 3),
                                dtype=torch.uint8, device=dev, generator=g)
         if cfg.data.multi_label:
             labels = (torch.rand(nc + 1, b, k, device=dev, generator=g)
@@ -665,7 +666,7 @@ def _assert_gan_states_equal(a, b):
 
 
 @pytest.mark.parametrize("case", ["config2", "ema", "d_projection",
-                                  "multi_label"])
+                                  "multi_label", "config4"])
 def test_graphed_gan_cycles_equal_eager_cycles(dev, case):
     """Twelve PC-WGAN cycles with the lr decaying, as one CUDA graph
     replayed after the warm-up cycles, and twelve eager cycles through the
@@ -756,6 +757,112 @@ def test_graphed_gan_resume_is_bit_exact(dev, tmp_path):
                    for s in opt.state.values())
     on_cpu.train_gan(1)
     assert on_cpu.gan_state.step == 7
+
+
+def _config4(**data):
+    """config4 as it is (ResNet dim 64, 64 bits, G and D dim 128 at 64 px,
+    100 classes, bf16), with ``data`` replaced."""
+    import dataclasses
+
+    from hashgan_tpu_torch.configs import get_config
+
+    cfg = get_config("config4")
+    return dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, **data))
+
+
+def _assert_encoder_states_equal(a, b):
+    for (name, x), y in zip(a.module.state_dict().items(),
+                            b.module.state_dict().values()):
+        assert torch.equal(x, y), name
+    for sa, sb in zip(a.optimizer.state.values(), b.optimizer.state.values()):
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(sa[key], sb[key]), key
+
+
+def test_replayed_resnet_parts_equal_eager_steps(dev):
+    """config4's ResNet through five training steps of a co-training
+    step's shape (96 inputs of 64 px, the WML loss over 100 classes), its
+    six parts replayed as CUDA graphs, and eagerly, from one initial state:
+    the same losses, parameters and Adam moments, bit for bit. An input of
+    another shape, and an eval-mode forward, run eagerly."""
+    from hashgan_tpu_torch.train import hash_step
+    from hashgan_tpu_torch.train.state import create_encoder_state
+
+    set_numerics()
+    cfg = _config4()
+    states = [create_encoder_state(cfg, dev) for _ in range(2)]
+    replayed = states[0].module
+    replayed.replay_parts = True
+    g = torch.Generator(device=dev).manual_seed(5)
+    for _ in range(5):
+        x = torch.randn(96, 64, 64, 3, device=dev, generator=g) * 60.0
+        y = torch.nn.functional.one_hot(torch.randint(
+            0, 100, (96,), device=dev, generator=g), 100).float()
+        losses = []
+        for st in states:
+            loss, _ = hash_step.encoder_loss(st.module, x, y, cfg)
+            loss.backward()
+            st.optimizer.step()
+            losses.append(loss.detach())
+        assert torch.equal(*losses)
+    torch.cuda.synchronize()
+    key = replayed._graphs[0]
+    assert key[0] == (96, 64, 64, 3)
+    _assert_encoder_states_equal(*states)
+    x = x[:32]
+    assert torch.equal(replayed(x), states[1].module(x))
+    replayed.eval()
+    with torch.no_grad():
+        assert torch.equal(replayed(x), states[1].module.eval()(x))
+    assert replayed._graphs[0] == key
+
+
+def test_graphed_sampler_equals_eager_sampler(dev):
+    """config4's G (64 px, 100 classes) sampling 32 images three times
+    through one CUDA graph and eagerly: the same images bit for bit, each
+    call's its own; a call of another shape runs eagerly."""
+    from hashgan_tpu_torch.train.gan_step import eval_sampler
+    from hashgan_tpu_torch.train.graph_step import GraphedSampler
+    from hashgan_tpu_torch.train.state import create_gan_state
+
+    set_numerics()
+    cfg = _config4()
+    sample = eval_sampler(create_gan_state(cfg, dev).generator)
+    graphed = GraphedSampler(sample)
+    g = torch.Generator(device=dev).manual_seed(6)
+    got = []
+    for n in (32, 32, 32, 8):
+        z = torch.randn(n, cfg.gan.z_dim, device=dev, generator=g)
+        y = torch.nn.functional.one_hot(torch.randint(
+            0, 100, (n,), device=dev, generator=g), 100).float()
+        got.append(graphed(z, y))
+        assert torch.equal(got[-1], sample(z, y))
+    assert graphed._graph is not None and graphed._key[0] == (32, 128)
+    assert got[0].shape == (32, 64, 64, 3) and got[3].shape[0] == 8
+    assert not torch.equal(got[0], got[1])
+
+
+def test_host_feed_replays_equal_the_eager_host_feed(dev, tmp_path):
+    """Experiment(config4) on the host feed at mesh 1, small splits: one
+    stage-I cycle, then six co-training steps with the ResNet's parts and
+    G's sampler replayed as CUDA graphs, and the same with both eager: the
+    same encoder parameters and Adam moments, bit for bit."""
+    from hashgan_tpu_torch.train.loop import Experiment
+
+    cfg = _config4(n_train=512, n_query=32, n_database=64)
+    exps = [Experiment(cfg, workdir=str(tmp_path / n), device=dev)
+            for n in "ab"]
+    assert exps[0]._replay_parts and exps[0].encoder.replay_parts
+    exps[1]._replay_parts = exps[1].encoder.replay_parts = False
+    for exp in exps:
+        exp.train_gan(1)
+        exp.train_encoder(6, eval_during=False)
+    torch.cuda.synchronize()
+    assert exps[0].encoder._graphs is not None
+    assert exps[0]._graphed_sample._graph is not None
+    assert exps[1].encoder._graphs is None and exps[1]._graphed_sample is None
+    _assert_encoder_states_equal(exps[0].encoder_state,
+                                 exps[1].encoder_state)
 
 
 @pytest.mark.parametrize("nd", [2, 4])
