@@ -36,6 +36,7 @@ from hashgan_tpu_torch.models.layers import (
     cond_batch_norm_shards,
     layer_norm_channels,
 )
+from hashgan_tpu_torch.utils.profiling import count
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
@@ -45,10 +46,95 @@ def upsample2x(x: torch.Tensor) -> torch.Tensor:
         n, c, 2 * h, 2 * w)
 
 
+# D's ReLU and mean-pool are differentiated twice (the gradient penalty's
+# double backward). PyTorch's second-order formulas for ``F.relu`` and
+# ``F.avg_pool2d`` add ``zeros_like`` terms for the forward input, and the
+# engine then runs a whole backward of D's forward graph on those zeros.
+# These first-order versions run the same kernels, forward and backward,
+# but build their backward as a node with no edge back into the forward
+# graph, and pass an undefined gradient on as undefined, so the double
+# backward stops there. Every gradient is the same, bit for bit: each
+# dropped term is an exact ``+ 0``.
+
+
+class _ReLUGrad(torch.autograd.Function):
+    """(g, relu's output, detached) -> ReLU's input gradient; linear in g."""
+
+    @staticmethod
+    def forward(ctx, g, out):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(out)
+        return torch.ops.aten.threshold_backward(g, out, 0)
+
+    @staticmethod
+    def backward(ctx, gg):
+        if gg is None:
+            return None, None
+        return torch.ops.aten.threshold_backward(
+            gg, ctx.saved_tensors[0], 0), None
+
+
+class _ReLU(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.set_materialize_grads(False)
+        out = torch.relu(x)
+        ctx.save_for_backward(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        if g is None:
+            return None
+        if torch.is_grad_enabled():  # a backward with create_graph
+            count("gan.critic.first_order")
+        return _ReLUGrad.apply(g, ctx.saved_tensors[0].detach())
+
+
+class _MeanPoolGrad(torch.autograd.Function):
+    """(g, the pool's input, detached: its geometry alone is read) -> the
+    pool's input gradient; linear in g."""
+
+    @staticmethod
+    def forward(ctx, g, x):
+        ctx.set_materialize_grads(False)
+        return torch.ops.aten.avg_pool2d_backward(
+            g, x, [2, 2], [2, 2], [0, 0], False, True, None)
+
+    @staticmethod
+    def backward(ctx, gg):
+        if gg is None:
+            return None, None
+        return F.avg_pool2d(gg, 2), None
+
+
+class _MeanPool(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x)
+        return F.avg_pool2d(x, 2)
+
+    @staticmethod
+    def backward(ctx, g):
+        if g is None:
+            return None
+        if torch.is_grad_enabled():
+            count("gan.critic.first_order")
+        return _MeanPoolGrad.apply(g, ctx.saved_tensors[0].detach())
+
+
+def critic_relu(x: torch.Tensor) -> torch.Tensor:
+    """``F.relu`` whose backward has no edge back into the forward graph
+    (the critic's; G, differentiated once, keeps ``F.relu``)."""
+    return _ReLU.apply(x)
+
+
 def meanpool2x(x: torch.Tensor) -> torch.Tensor:
     """2x2 mean-pool of NCHW ``x`` (float32 sums, rounded to x's dtype, as
-    the reference's mean of a low-precision array)."""
-    return F.avg_pool2d(x, 2)
+    the reference's mean of a low-precision array), ``F.avg_pool2d``'s, with
+    a backward that has no edge back into the forward graph."""
+    return _MeanPool.apply(x)
 
 
 def _dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype
@@ -201,13 +287,13 @@ class DiscResBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         if self.first:
-            h = conv(F.relu(conv(x, self.conv1, dt)), self.conv2, dt)
+            h = conv(critic_relu(conv(x, self.conv1, dt)), self.conv2, dt)
             return meanpool2x(h) + conv(meanpool2x(x), self.skip, dt)
         h = x if self.ln1 is None else layer_norm_channels(x, self.ln1, dt)
-        h = conv(F.relu(h), self.conv1, dt)
+        h = conv(critic_relu(h), self.conv1, dt)
         if self.ln2 is not None:
             h = layer_norm_channels(h, self.ln2, dt)
-        h = conv(F.relu(h), self.conv2, dt)
+        h = conv(critic_relu(h), self.conv2, dt)
         skip = x
         if self.down:
             h, skip = meanpool2x(h), meanpool2x(skip)
@@ -268,7 +354,7 @@ class Discriminator(nn.Module):
             h = block(h)
         h = self.block_b(self.block_a(self.block_down(h)))
         # the reference's mean of the compute dtype: float32 sums, rounded
-        h = F.relu(h).float().mean(dim=(2, 3)).to(dt).float()
+        h = critic_relu(h).float().mean(dim=(2, 3)).to(dt).float()
         score = self.critic(h)[:, 0]
         aux = self.aux(h)
         if self.proj_embed is not None and labels is not None:

@@ -697,6 +697,40 @@ def test_graphed_gan_cycles_equal_eager_cycles(dev, case):
     assert all(torch.isfinite(v) for m in got for v in m.values())
 
 
+def test_first_order_critic_ops_change_no_bit_in_the_graph(dev, monkeypatch):
+    """config2's cycle in bf16 as one replayed CUDA graph with D's
+    first-order ReLU and mean-pool, and again with ``F.relu`` and
+    ``F.avg_pool2d`` in D (whose double backward runs on zeros): the same
+    state and every cycle's metrics, bit for bit."""
+    from torch.nn import functional as F
+
+    from hashgan_tpu_torch.models import gan
+    from hashgan_tpu_torch.train.graph_step import WARMUP, GraphedGanCycle
+    from hashgan_tpu_torch.train.state import create_gan_state
+
+    set_numerics()
+    cfg = _gan_graph_cfg()
+    batches = _gan_batches(cfg, dev, WARMUP + 2)
+
+    def run():
+        st = create_gan_state(cfg, dev, capturable=True)
+        graphed = GraphedGanCycle(st, cfg)
+        metrics = [graphed(st, x, y) for x, y in batches]
+        assert graphed._graph is not None
+        torch.cuda.synchronize()
+        return st, metrics
+
+    got_state, got = run()
+    monkeypatch.setattr(gan, "critic_relu", F.relu)
+    monkeypatch.setattr(gan, "meanpool2x", lambda x: F.avg_pool2d(x, 2))
+    want_state, want = run()
+    _assert_gan_states_equal(got_state, want_state)
+    for m, w in zip(got, want):
+        assert list(m) == list(w)
+        for k in m:
+            assert torch.equal(m[k], w[k]), k
+
+
 def test_failed_gan_capture_raises(dev, monkeypatch):
     """A cycle that reads a value back to the host cannot be captured: the
     capture raises, after the warm-up's eager cycles, and no cycle is

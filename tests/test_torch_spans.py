@@ -252,7 +252,9 @@ def test_training_spans_and_results_bit_for_bit(tmp_path):
         assert {r.name for r in _children(recs, kids["enc.forward"])} == {
             "enc.fakes.forward", "enc.geometry.forward"}
     snap = profiling.snapshot()
-    assert snap["counters"] == {"train.steps": 3}
+    # one a critic ReLU or pool in each critic step's penalty: 12 at 32 px
+    assert snap["counters"] == {"train.steps": 3,
+                                "gan.critic.first_order": 2 * 12}
     assert snap["spans"]["train.feed"]["count"] == 3
     assert snap["spans"]["train.boundary"]["count"] == 3
     assert all(r.parent is None for r in recs
