@@ -78,6 +78,8 @@ def _maxpool(h: torch.Tensor) -> torch.Tensor:
 
 
 class AlexNetEncoder(nn.Module):
+    parts = ()  # its forward runs as one piece (``ResNetEncoder.parts``)
+
     def __init__(self, bits: int = 48, image_size: int = 227,
                  dtype: torch.dtype = torch.float32, dropout_rate: float = 0.5,
                  input_resize: int = 0, device: torch.device | str = "cpu",

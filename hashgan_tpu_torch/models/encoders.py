@@ -33,7 +33,6 @@ from torch.nn import functional as F
 from hashgan_tpu_torch.utils.profiling import span
 
 _FLAX_TRUNC_STD = 0.87962566103423978  # std of a unit normal cut at +-2
-_STAGE_SPANS = tuple(f"enc.resnet.s{i}.forward" for i in range(4))
 
 
 class HashHead(nn.Module):
@@ -100,6 +99,8 @@ def group_norm(h: torch.Tensor, norm: nn.GroupNorm,
 class SmallCNNEncoder(nn.Module):
     """3-stage conv net for 32x32-scale images (reference config 1 and 5)."""
 
+    parts = ()  # its forward runs as one piece (``ResNetEncoder.parts``)
+
     def __init__(self, bits: int = 32, dim: int = 64,
                  dtype: torch.dtype = torch.float32,
                  device: torch.device | str = "cpu",
@@ -161,40 +162,19 @@ class ResNetBlock(nn.Module):
         return F.relu(h + skip)
 
 
-class _Part(nn.Module):
-    """One part of ``ResNetEncoder.forward`` (the stem, a stage, the head)
-    as a module of its own that holds the layers it runs, so that
-    ``torch.cuda.make_graphed_callables`` captures it with their
-    parameters. The encoder does not register it."""
-
-    def __init__(self, run, *layers: nn.Module):
-        super().__init__()
-        self.layers = nn.ModuleList(layers)
-        self.run = run
-
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
-        return self.run(h)
-
-
 class ResNetEncoder(nn.Module):
     """ResNet-18-shaped backbone + hash head (config 4; reference
     ``:90-115``): a 3x3 stem, four stages of two blocks at widths dim x
     (1, 2, 4, 8), stride 2 from the second stage on, global mean pool, a
-    float32 LayerNorm of the pooled embedding, the hash head. Its forward
-    runs in the spans ``enc.resnet.stem.forward``, ``enc.resnet.s0.forward``
-    to ``enc.resnet.s3.forward`` (one a stage) and
-    ``enc.resnet.head.forward`` (pool, LayerNorm, hash layer).
+    float32 LayerNorm of the pooled embedding, the hash head.
 
-    With ``replay_parts`` set, a training forward on a card (train mode,
-    gradients on, no capture under way) replays each of those six parts,
-    forward and backward, as a CUDA graph: the eager step issues about a
-    thousand launches, which the host cannot issue as fast as the card runs
-    them. The graphs are captured at the first such forward
-    (``torch.cuda.make_graphed_callables``, whose warm-up runs each part
-    three times without touching the parameters) and serve inputs of that
-    shape alone; any other input runs eagerly. They read the parameters in
-    place, so an optimiser's update or ``load_state_dict`` reaches them; a
-    copy of the encoder captures its own."""
+    Its forward runs ``parts`` in order, each in its span: the stem
+    (``enc.resnet.stem.forward``), the four stages
+    (``enc.resnet.s0.forward`` to ``enc.resnet.s3.forward``) and the head
+    (``enc.resnet.head.forward``: pool, LayerNorm, hash layer). Each part
+    is (span name, function of h, the layers it runs); a runtime may
+    replace the functions by callables of the same signature, as
+    ``train/graph_step.py`` does with CUDA graphs."""
 
     def __init__(self, bits: int = 64, dim: int = 64,
                  dtype: torch.dtype = torch.float32,
@@ -217,14 +197,14 @@ class ResNetEncoder(nn.Module):
         self.hash = HashHead(cin, bits)
         init_like_flax(self, generator)
         self.to(device)
-        self.replay_parts = False
-        self._graphs = None  # (input key, the six graphed parts)
-
-    def __getstate__(self):
-        # a copy (a data-parallel replica) captures graphs of its own
-        state = self.__dict__.copy()
-        state["_graphs"] = None
-        return state
+        self.parts = [
+            ("enc.resnet.stem.forward", self._stem,
+             (self.stem, self.stem_norm)),
+            *((f"enc.resnet.s{i}.forward", partial(self._stage, i),
+               (getattr(self, f"s{i}b0"), getattr(self, f"s{i}b1")))
+              for i in range(4)),
+            ("enc.resnet.head.forward", self._head,
+             (self.embed_norm, self.hash))]
 
     def _stem(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
@@ -239,45 +219,16 @@ class ResNetEncoder(nn.Module):
     def _head(self, h: torch.Tensor) -> torch.Tensor:
         return self.hash(self.embed_norm(h.mean(dim=(2, 3)).to(torch.float32)))
 
-    def _replayed(self, x: torch.Tensor):
-        """The six graphed parts for ``x``, or None where ``x`` runs
-        eagerly (see the class docstring)."""
-        if not (self.replay_parts and x.is_cuda and self.training
-                and torch.is_grad_enabled()
-                and not torch.cuda.is_current_stream_capturing()):
-            return None
-        key = (tuple(x.shape), x.dtype, x.device, x.requires_grad)
-        if self._graphs is None:
-            self._graphs = (key, self._capture(x))
-        return self._graphs[1] if self._graphs[0] == key else None
-
-    def _capture(self, x: torch.Tensor):
-        parts = (_Part(self._stem, self.stem, self.stem_norm),
-                 *(_Part(partial(self._stage, i), getattr(self, f"s{i}b0"),
-                         getattr(self, f"s{i}b1")) for i in range(4)),
-                 _Part(self._head, self.embed_norm, self.hash))
-        # each part's static input, shaped by an eager forward
-        args, h = [], x.detach().clone()
-        with torch.no_grad():
-            for part in parts:
-                args.append((h,))
-                h = part(h).clone().requires_grad_()
-        return torch.cuda.make_graphed_callables(parts, tuple(args))
-
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(B, H, W, 3) mean-subtracted inputs -> (B, bits) float32 codes.
         ``generator`` (the train step's) is unused: this encoder draws
         nothing."""
-        parts = self._replayed(x)
-        with span("enc.resnet.stem.forward"):
-            h = self._stem(x) if parts is None else parts[0](x)
-        for stage in range(4):
-            with span(_STAGE_SPANS[stage]):
-                h = (self._stage(stage, h) if parts is None
-                     else parts[1 + stage](h))
-        with span("enc.resnet.head.forward"):
-            return self._head(h) if parts is None else parts[5](h)
+        h = x
+        for name, run, _ in self.parts:
+            with span(name):
+                h = run(h)
+        return h
 
 
 ARCHS = ("small_cnn", "alexnet", "resnet")

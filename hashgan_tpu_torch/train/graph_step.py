@@ -24,12 +24,11 @@ serves every step:
 - the running sum of the metrics, read as the window's means.
 
 The optimiser must be Adam with ``capturable=True`` and tensor lrs
-(``train/state.py::make_encoder_tx``). The first ``WARMUP`` steps run
-eagerly on a side stream: they are real steps, which initialise cuBLAS,
-cuDNN and Adam's state before the capture (a capture runs nothing). A
-capture or a replay that fails raises; no step falls back to eager on the
-card. On the CPU there is no graph: the same steps run eagerly through the
-same buffers.
+(``train/state.py::make_encoder_tx``). Every graph here is made by
+``_Graph``: real runs eagerly first, then the capture. A capture or a
+replay that fails raises; no step falls back to eager on the card. On the
+CPU there is no graph: the same steps run eagerly through the same
+buffers.
 
 Stage I's PC-WGAN cycle replays the same way (``GraphedGanCycle``): one
 graph holds its ``n_critic`` critic steps (G's fakes, D on real and fake,
@@ -41,23 +40,21 @@ device, its draws and the lr of each of its ``n_critic + 1`` updates
 updates, so the captured body copies lr k into D's lr tensor before critic
 step k; the host steps both schedules after each replay.
 
-On the host feed at mesh 1 the step runs eagerly, and two parts of it
-replay graphs of their own: the ResNet encoder's six parts
-(``models/encoders.py::ResNetEncoder.replay_parts``) and G's sampler
-(``GraphedSampler``).
-
-This is the mesh-1 path. At a data-parallel mesh above 1 ``Experiment``
-runs ``hash_step.sharded_update_step`` and the GAN cycle eagerly: every
-position trains, with no graph around the step (one graph of the sharded
-step is a lever on record, ROADMAP queue 2).
+On the host feed the step runs eagerly, and the encoder's parts
+(``replay_parts``: the ResNet's six) and G's sampler (``GraphedSampler``)
+replay graphs of their own. ``Experiment`` takes these graphs at mesh 1
+on a card, and runs eagerly elsewhere (one graph of the sharded step is a
+lever on record).
 """
 
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Callable, Dict, Optional
 
 import torch
+from torch import nn
 
 from hashgan_tpu_torch.models.alexnet import HIDDEN, dropout_noise
 from hashgan_tpu_torch.train.gan_step import (
@@ -79,6 +76,65 @@ from hashgan_tpu_torch.utils.profiling import count, span
 SLOTS = 4    # pinned staging buffers in the ring
 WARMUP = 3   # eager steps before the capture
 _ALIGN = 16  # byte alignment of each field in the packed buffer
+
+
+class _Graph:
+    """The warm-up and capture of one CUDA graph of ``_body``.
+    ``_warming(run)`` runs ``run()``, real work that includes the body's,
+    eagerly on a side stream joined to the current stream before and
+    after, while the graph is not captured and fewer than ``warmup`` runs
+    were made, and says whether it ran: real runs initialise cuBLAS, cuDNN
+    and the optimisers' state, which a capture only records.
+    ``_captured()`` makes the warm-up runs still missing (of ``_body``),
+    then ``_capture()``, at its first call, and returns the graph."""
+
+    warmup = WARMUP
+
+    def __init__(self, groups=()):
+        # the optimiser groups whose lr tensors the graph reads in place
+        if not all(torch.is_tensor(g["lr"]) and g.get("capturable")
+                   for g in groups):
+            raise ValueError(f"{type(self).__name__} needs Adam with "
+                             "capturable=True and tensor lrs (train/state.py"
+                             ": make_encoder_tx or create_gan_state with "
+                             "capturable=True)")
+        self._groups, self._lrs = groups, [g["lr"] for g in groups]
+        self._warm = 0
+        self._graph = None
+        # one side stream for every warm-up run: each stream that runs a
+        # matmul keeps a cuBLAS workspace of its own
+        self._side = None
+
+    def _check_lrs(self) -> None:
+        if any(g["lr"] is not lr for g, lr in zip(self._groups, self._lrs)):
+            raise RuntimeError("the optimisers' lr tensors were replaced "
+                               "after this graph was built (a restore?): "
+                               f"build a new {type(self).__name__}")
+
+    def _warming(self, run: Callable[[], object]) -> bool:
+        if self._graph is not None or self._warm >= self.warmup:
+            return False
+        if self._side is None:
+            self._side = torch.cuda.Stream()
+        self._side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(self._side):
+            run()
+        torch.cuda.current_stream().wait_stream(self._side)
+        self._warm += 1
+        return True
+
+    def _captured(self):
+        if self._graph is None:
+            while self._warming(self._body):
+                pass
+            self._graph = self._capture()
+        return self._graph
+
+    def _capture(self):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._body()
+        return graph
 
 
 class _Staging:
@@ -127,7 +183,7 @@ class _Staging:
             self._events[turn].record()
 
 
-class GraphedEncoderStep:
+class GraphedEncoderStep(_Graph):
     """Stage-II steps of ``state`` on ``source``'s batches (a
     ``DeviceBatchSource`` with ``n_batches == 1``), with G's sampler
     ``sample`` for co-training or None. ``step()`` takes one step eagerly
@@ -142,15 +198,9 @@ class GraphedEncoderStep:
                                                           sample)
         self.device = source.device
         self.cuda = self.device.type == "cuda"
+        super().__init__(state.optimizer.param_groups if self.cuda else ())
         b = source.batch_size
         self.n_fake = 0 if sample is None else n_fakes(cfg, b)
-        self._lrs = [g["lr"] for g in state.optimizer.param_groups]
-        if self.cuda and not all(
-                torch.is_tensor(lr) and g.get("capturable")
-                for lr, g in zip(self._lrs, state.optimizer.param_groups)):
-            raise ValueError("a CUDA graph of the step needs Adam with "
-                             "capturable=True and tensor lrs "
-                             "(make_encoder_tx(..., capturable=True))")
         # one step's draws of this config, to lay out the packed buffer
         like = draw_step(cfg, cfg.train.seed, 0, b, self.n_fake)
         fields = {"idx": torch.from_numpy(source.indices(0))}
@@ -163,8 +213,6 @@ class GraphedEncoderStep:
             self._noise = tuple(torch.empty(rows, HIDDEN, device=self.device)
                                 for _ in range(2))
         self._sums = None
-        self._warm = 0
-        self._graph = None
 
     def _stage(self, step: int) -> None:
         """Draw step ``step`` on the host and queue its copy into the
@@ -201,36 +249,20 @@ class GraphedEncoderStep:
 
     def run(self, n: int) -> Dict[str, torch.Tensor]:
         """``n`` steps; the means of their metrics."""
-        if self.cuda and any(g["lr"] is not lr for g, lr in zip(
-                self.state.optimizer.param_groups, self._lrs)):
-            raise RuntimeError("the optimiser's lr tensors were replaced "
-                               "after this step was built (a restore?): "
-                               "build a new GraphedEncoderStep")
+        self._check_lrs()
         if self._sums is not None:
             self._sums.zero_()
-        done = 0
         if not self.cuda:
             for _ in range(n):
                 self.step()
             return self._means(n)
-        if self._graph is None:
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                while self._warm < WARMUP and done < n:
-                    self.step()
-                    self._warm += 1
-                    done += 1
-            torch.cuda.current_stream().wait_stream(side)
-            if done == n:
-                return self._means(n)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                self._body()
-            self._graph = graph
+        done = 0
+        while done < n and self._warming(self.step):
+            done += 1
         for _ in range(n - done):
+            graph = self._captured()
             self._stage(self.state.step)
-            self._graph.replay()
+            graph.replay()
             advance(self.state)
         return self._means(n)
 
@@ -239,47 +271,44 @@ class GraphedEncoderStep:
         return {k: means[i] for i, k in enumerate(self._keys)}
 
 
-class GraphedSampler:
+class GraphedSampler(_Graph):
     """G's sampler ``sample(z, labels)`` (eval mode, no gradient:
     ``Experiment._sample``) as one CUDA graph, for stage II's eager steps on
     the host feed: captured at the first call on a card, after one eager
-    call on a side stream, into static copies of that call's inputs, and
-    replayed by every later call of the same shapes, which copies its
-    inputs in first. A call of other shapes, off the card or inside another
-    capture runs ``sample`` itself. The graph reads G's parameters and
-    running averages in place. Each call returns a copy of the graph's
-    output, so a result stays valid through later calls."""
+    call, into static copies of that call's inputs, and replayed by every
+    later call of the same shapes, which copies its inputs in first. A
+    call of other shapes, off the card or inside another capture runs
+    ``sample`` itself. The graph reads G's parameters and running averages
+    in place. Each call returns a copy of the graph's output, so a result
+    stays valid through later calls."""
+
+    warmup = 1
 
     def __init__(self, sample: Callable):
+        super().__init__()
         self.sample = sample
         self._key = None
-        self._graph = None
+
+    def _body(self) -> None:
+        self._out = self.sample(self._z, self._labels)
 
     def __call__(self, z: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         if not z.is_cuda or torch.cuda.is_current_stream_capturing():
             return self.sample(z, labels)
         key = (tuple(z.shape), z.dtype, tuple(labels.shape), labels.dtype)
-        if self._graph is None:
+        if self._key is None:
             self._key = key
             self._z, self._labels = z.clone(), labels.clone()
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                self.sample(self._z, self._labels)
-            torch.cuda.current_stream().wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                self._out = self.sample(self._z, self._labels)
-            self._graph = graph
         if key != self._key:
             return self.sample(z, labels)
+        graph = self._captured()
         self._z.copy_(z)
         self._labels.copy_(labels)
-        self._graph.replay()
+        graph.replay()
         return self._out.clone()
 
 
-class GraphedGanCycle:
+class GraphedGanCycle(_Graph):
     """``make_gan_cycle``'s cycle of ``state`` (a ``GanState`` on one card
     with capturable Adams: ``create_gan_state(..., capturable=True)``) as
     one CUDA graph replayed a cycle. It is called as that cycle is,
@@ -292,16 +321,13 @@ class GraphedGanCycle:
     the optimisers' state needs a new one."""
 
     def __init__(self, state: GanState, cfg):
+        super().__init__([o.param_groups[0]
+                          for o in (state.d_opt, state.g_opt)])
         self.state, self.cfg = state, cfg
         self.device = next(state.generator.parameters()).device
-        groups = [o.param_groups[0] for o in (state.d_opt, state.g_opt)]
-        if self.device.type != "cuda" or not all(
-                torch.is_tensor(g["lr"]) and g["capturable"] for g in groups):
+        if self.device.type != "cuda":
             raise ValueError("a CUDA graph of the GAN cycle needs the state "
-                             "on a card, with Adam capturable=True and "
-                             "tensor lrs (create_gan_state(..., "
-                             "capturable=True))")
-        self._lrs = [g["lr"] for g in groups]
+                             "on a card")
         gan = cfg.gan
         z, eps, z_g = cycle_draws(cfg.train.seed, 0, gan.n_critic,
                                   cfg.train.batch_size, gan.z_dim)
@@ -312,8 +338,6 @@ class GraphedGanCycle:
         self._batch = None   # static (images, labels), made at the first call
         self._keys = None
         self._values = None  # the body's metrics, stacked
-        self._warm = 0
-        self._graph = None
 
     def _stage(self, images_u8, labels, draws) -> None:
         """Queue the cycle's batch (device to device) and its draws and
@@ -362,29 +386,84 @@ class GraphedGanCycle:
                  draws=None) -> Dict[str, torch.Tensor]:
         if state is not self.state:
             raise ValueError("this GraphedGanCycle holds another GanState")
-        if any(o.param_groups[0]["lr"] is not lr for o, lr in zip(
-                (state.d_opt, state.g_opt), self._lrs)):
-            raise RuntimeError("the optimisers' lr tensors were replaced "
-                               "after this cycle was built (a restore?): "
-                               "build a new GraphedGanCycle")
+        self._check_lrs()
         with span("gan.cycle", state.step):
             count("train.steps")
-            if self._graph is None and self._warm < WARMUP:
-                side = torch.cuda.Stream()
-                side.wait_stream(torch.cuda.current_stream())
-                with torch.cuda.stream(side):
-                    self._stage(images_u8, labels, draws)
-                    self._body()
-                torch.cuda.current_stream().wait_stream(side)
-                self._warm += 1
+            if self._warming(lambda: (self._stage(images_u8, labels, draws),
+                                      self._body())):
                 return self._finish()
-            if self._graph is None:
-                graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph):
-                    self._body()
-                self._graph = graph
+            graph = self._captured()
             with span("gan.replay"):
                 count("gan.replays")
                 self._stage(images_u8, labels, draws)
-                self._graph.replay()
+                graph.replay()
             return self._finish()
+
+
+def _key(h: torch.Tensor) -> tuple:
+    return tuple(h.shape), h.dtype, h.device, h.requires_grad
+
+
+class _ReplayedParts(_Graph):
+    """``__call__(i, h)``: part ``i`` of ``model.parts`` on ``h``, replayed
+    forward and backward as a CUDA graph on a card, in train mode with
+    gradients on and no capture under way, else eagerly. The graphs are
+    captured together (``make_graphed_callables``) at the first such call
+    of the first part, into static inputs shaped by an eager forward; each
+    warm-up run takes every part forward and backward. A part replays only
+    for inputs like its static one. The graphs read the parameters in
+    place, so an optimiser's update or ``load_state_dict`` reaches them."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+        self.parts = list(model.parts)  # the eager ones
+        self._args = None  # a part's static input, then its parameters
+
+    def __getstate__(self):
+        # a copy of the model (a data-parallel replica) captures its own
+        return {**self.__dict__, "_warm": 0, "_graph": None, "_args": None,
+                "_side": None}
+
+    def __call__(self, i: int, h: torch.Tensor) -> torch.Tensor:
+        if (h.is_cuda and self.model.training and torch.is_grad_enabled()
+                and not torch.cuda.is_current_stream_capturing()):
+            if self._args is None and i == 0:
+                self._shape(h)
+            if self._args is not None and _key(h) == _key(self._args[i][0]):
+                return self._captured()[i](h, *self._args[i][1:])
+        return self.parts[i][1](h)
+
+    def _shape(self, x: torch.Tensor) -> None:
+        args, h = [], x.detach().clone()
+        with torch.no_grad():
+            for _, run, layers in self.parts:
+                args.append((h, *(p for m in layers for p in m.parameters())))
+                h = run(h).clone().requires_grad_()
+        self._args = args
+
+    def _body(self) -> None:
+        for (_, run, _), (h, *params) in zip(self.parts, self._args):
+            out = run(h)
+            torch.autograd.grad(out, [t for t in (h, *params)
+                                      if t.requires_grad],
+                                torch.empty_like(out))
+
+    def _capture(self):
+        # a part takes its parameters as inputs too, for their gradients
+        return torch.cuda.make_graphed_callables(
+            tuple(lambda h, *params, run=run: run(h)
+                  for _, run, _ in self.parts),
+            tuple(self._args), num_warmup_iters=0)
+
+
+def replay_parts(model: nn.Module) -> bool:
+    """Replace the functions of ``model.parts`` by ``_ReplayedParts``'
+    (the model's forward runs them in the same spans); whether it has
+    any."""
+    if not model.parts:
+        return False
+    graphs = _ReplayedParts(model)
+    model.parts = [(name, partial(graphs, i), layers)
+                   for i, (name, _, layers) in enumerate(model.parts)]
+    return True

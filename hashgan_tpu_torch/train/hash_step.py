@@ -78,30 +78,12 @@ def wml_loss(codes: torch.Tensor, labels: torch.Tensor, cfg,
         balance_weight=hl.balance_weight, sample_weight=sample_weight)
 
 
-def encoder_loss_and_grad(encoder: nn.Module, x: torch.Tensor,
-                          labels: torch.Tensor, cfg,
-                          sample_weight: Optional[torch.Tensor] = None,
-                          dropout: Optional[Tuple[torch.Tensor,
-                                                  torch.Tensor]] = None,
-                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Forward the already-augmented encoder inputs ``x`` (mean-subtracted
-    float32, NHWC) in train mode, take the WML loss of ``cfg.hash_loss``
-    against ``labels`` (pairs weighted by ``sample_weight``, when given),
-    and backpropagate: the gradients are left in the parameters' ``.grad``
-    (set anew, not accumulated). ``dropout`` is the step's dropout noise,
-    for an encoder that drops (AlexNet). Returns (loss, metrics)."""
-    loss, metrics = encoder_loss(encoder, x, labels, cfg, sample_weight,
-                                 dropout)
-    loss.backward()
-    return loss, metrics
-
-
 def encoder_loss(encoder: nn.Module, x: torch.Tensor, labels: torch.Tensor,
                  cfg, sample_weight: Optional[torch.Tensor] = None,
                  dropout: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """``encoder_loss_and_grad``'s forward: the encoder in train mode with
-    its gradients cleared, its codes of ``x`` and their WML loss."""
+    """The encoder in train mode with its gradients cleared, its codes of
+    the augmented inputs ``x`` and their WML loss: (loss, metrics)."""
     encoder.train()
     encoder.zero_grad(set_to_none=True)
     codes = encoder(x) if dropout is None else encoder(x, dropout=dropout)

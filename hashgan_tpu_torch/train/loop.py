@@ -14,23 +14,16 @@ then Hamming-ranking evaluation and the index.
 - ``train.device_data``: both stages gather their batches from the train
   split held on the device (``data/device_data.py``) in windows that end
   on every boundary, ``gcd`` of the boundaries' periods long
-  (``:152-203, 429-492``). Stage II replays one CUDA graph a step through
-  a window (``train/graph_step.py``) at mesh 1; stage I, and stage II at a
-  mesh above 1, run their steps eagerly, with no host sync inside a
-  window. A full window logs the means of its
-  steps, a ragged one (a resumed run's first, a run's last) its last
-  step's metrics, as the reference does. The encode holds each split on
-  the device (``ResidentEncoder``). Batches, steps and codes are the host
-  feed's bit for bit; on the card the graph's capturable Adam rounds its
-  lr as float32;
-- stage I's cycle, on either feed, is one CUDA graph replayed a cycle at
-  mesh 1 on a card (``train/graph_step.py::GraphedGanCycle``, after
-  ``WARMUP`` eager cycles), and eager on the CPU and at a mesh above 1.
-  Its capturable Adams round their lrs as float32 too;
-- stage II on the host feed runs its steps eagerly; at mesh 1 on a card
-  the ResNet encoder replays its six parts as CUDA graphs
-  (``ResNetEncoder.replay_parts``) and G's images come from one graph of
-  the sampler (``GraphedSampler``), bit for bit the eager step's;
+  (``:152-203, 429-492``), with no host sync inside a window. A full
+  window logs the means of its steps, a ragged one (a resumed run's
+  first, a run's last) its last step's metrics, as the reference does.
+  The encode holds each split on the device (``ResidentEncoder``).
+  Batches, steps and codes are the host feed's bit for bit;
+- CUDA graphs, at mesh 1 on a card only (``train/graph_step.py``): stage
+  I's cycle on either feed, stage II's step on the device feed, and on
+  the host feed an encoder's parts (the ResNet's) with G's sampler, each
+  bit for bit its eager run (a capturable Adam rounds its lr to
+  float32); eager on the CPU and at a mesh above 1;
 - ``evaluate``: encode -> pack -> Hamming kernel -> exact MAP@R and P@H<=r
   (or, past ``streaming_threshold``, tie-aware MAP from distance
   histograms), and the PR / precision@top-N curves in the workdir;
@@ -112,6 +105,7 @@ from hashgan_tpu_torch.train.graph_step import (
     GraphedEncoderStep,
     GraphedGanCycle,
     GraphedSampler,
+    replay_parts,
 )
 from hashgan_tpu_torch.train.state import create_encoder_state, create_gan_state
 from hashgan_tpu_torch.utils.checkpoint import (
@@ -152,18 +146,16 @@ class Experiment:
         self.logger = MetricsLogger(self.workdir)
         with phase("setup.splits"):
             self.splits = make_splits(cfg.data)
-        # capturable Adam for stage II's CUDA graph, which mesh 1 replays
+        # CUDA graphs, at mesh 1 on a card only (see the module docstring)
+        self._graphs = not self._dp and self.device.type == "cuda"
         self.encoder_state = create_encoder_state(
-            cfg, self.device, capturable=(
-                cfg.train.device_data and not self._dp
-                and self.device.type == "cuda"))
+            cfg, self.device,
+            capturable=self._graphs and cfg.train.device_data)
         self.encoder = self.encoder_state.module
         self._encode = make_encode_fn(self.encoder, cfg)
         self._saturation_warned = False
-        # stage I replays one CUDA graph a cycle on one card
-        self._gan_graphs = not self._dp and self.device.type == "cuda"
         self.gan_state = (create_gan_state(cfg, self.device,
-                                           capturable=self._gan_graphs)
+                                           capturable=self._graphs)
                           if cfg.use_gan else None)
         self._eager_gan_cycle = (make_gan_cycle(cfg, train_mesh)
                                  if cfg.use_gan else None)
@@ -171,15 +163,10 @@ class Experiment:
         self._enc_uses_gan = cfg.use_gan and cfg.train.use_gan_samples
         self._sources: Dict[tuple, DeviceBatchSource] = {}
         self._graphed: Optional[GraphedEncoderStep] = None
-        # stage II's eager steps on the host feed at mesh 1 on a card: an
-        # encoder that can (the ResNet) replays its parts as CUDA graphs,
-        # and G's images then come from one graph of the sampler
-        self._replay_parts = (hasattr(self.encoder, "replay_parts")
-                              and not self._dp and self.device.type == "cuda"
-                              and not cfg.train.device_data)
-        if self._replay_parts:
-            self.encoder.replay_parts = True
         self._graphed_sample: Optional[GraphedSampler] = None
+        if (self._graphs and not cfg.train.device_data
+                and replay_parts(self.encoder)):
+            self._graphed_sample = GraphedSampler(self._sample)
         self._resident_encoders: Dict[str, ResidentEncoder] = {}
         self.ckpt = CheckpointManager(self.workdir)
 
@@ -234,7 +221,7 @@ class Experiment:
                    draws=None) -> Dict[str, torch.Tensor]:
         """One cycle of ``state``: ``make_gan_cycle``'s, replayed as one
         CUDA graph at mesh 1 on a card, else eager."""
-        if not self._gan_graphs:
+        if not self._graphs:
             return self._eager_gan_cycle(state, images_u8, labels, draws)
         if self._graphed_gan is None:
             self._graphed_gan = GraphedGanCycle(state, self.cfg)
@@ -428,9 +415,7 @@ class Experiment:
                         metrics = self._graphed.step()
                 boundaries(metrics)
             return means
-        if sample is not None and self._replay_parts:
-            if self._graphed_sample is None:
-                self._graphed_sample = GraphedSampler(sample)
+        if sample is not None and self._graphed_sample is not None:
             sample = self._graphed_sample
         batches = make_batch_feed(
             self.splits["train"], cfg, start_step=state.step,

@@ -42,6 +42,8 @@ from hashgan_tpu_torch.models.encoders import (
 from hashgan_tpu_torch.models.layers import local_response_norm
 from hashgan_tpu_torch.ops.pack import pack_codes
 
+from torch_threads import one_thread  # noqa: F401
+
 
 def _images(n, size, seed):
     return np.random.default_rng(seed).integers(

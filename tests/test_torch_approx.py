@@ -31,6 +31,8 @@ from hashgan_tpu_torch.index.gallery import build_gallery_from_packed_device
 from hashgan_tpu_torch.ops import mxu_scan as port
 from hashgan_tpu_torch.ops.hamming import hamming_scan_topk
 
+from torch_threads import one_thread  # noqa: F401
+
 
 def _pm1(rng, n, bits, p=0.5):
     return np.where(rng.uniform(size=(n, bits)) < p, -1.0, 1.0).astype(

@@ -27,6 +27,8 @@ from hashgan_tpu_torch.entry import entry
 from hashgan_tpu_torch.models.convert import flax_to_torch
 from hashgan_tpu_torch.ops.hamming import exact_topk_torch
 
+from torch_threads import one_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -13,8 +13,9 @@ intra-op thread.
   critic's score and aux logits within 1e-5.
 - The ``enc.resnet.*`` spans of an encoder step: inside ``enc.forward``,
   once each a forward, in order.
-- ``ResNetEncoder.replay_parts`` off the card: the parts run eagerly, and
-  a copy of the encoder keeps no graphs of the original's.
+- ``train/graph_step.py::replay_parts`` off the card: the ResNet's parts
+  run eagerly, a copy of the encoder carries no graph state of the
+  original's, and an encoder without parts is left as it is.
 """
 
 import copy
@@ -29,15 +30,21 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from hashgan_tpu_torch.configs import get_config  # noqa: E402
-from hashgan_tpu_torch.models.encoders import ResNetEncoder  # noqa: E402
+from hashgan_tpu_torch.models.encoders import (  # noqa: E402
+    ResNetEncoder,
+    SmallCNNEncoder,
+)
 from hashgan_tpu_torch.models.gan import (  # noqa: E402
     Discriminator,
     Generator,
 )
 from hashgan_tpu_torch.train import hash_step  # noqa: E402
+from hashgan_tpu_torch.train.graph_step import replay_parts  # noqa: E402
 from hashgan_tpu_torch.train.state import create_encoder_state  # noqa: E402
 from hashgan_tpu_torch.utils import profiling  # noqa: E402
 from hgbench.reference import alexnet_hash, pc_wgan, resnet_hash  # noqa: E402
+
+from torch_threads import one_thread  # noqa: E402,F401
 
 RESNET_SPANS = ["enc.resnet.stem.forward"] + [
     f"enc.resnet.s{i}.forward" for i in range(4)] + [
@@ -45,13 +52,10 @@ RESNET_SPANS = ["enc.resnet.stem.forward"] + [
 
 
 @pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
+def fresh():
     profiling.reset()
     yield
     profiling.reset()
-    torch.set_num_threads(threads)
 
 
 def _labels(n, k=100, seed=0):
@@ -147,10 +151,19 @@ def test_replay_parts_run_eagerly_off_the_card():
     x = torch.randn((2, 16, 16, 3), generator=torch.Generator()
                     .manual_seed(7)) * 60.0
     want = enc(x)
-    enc.replay_parts = True
-    assert torch.equal(enc(x), want) and enc._graphs is None
-    enc._graphs = ("key", "parts")
+    assert replay_parts(enc)
+    graphs = enc.parts[0][1].func
+    assert all(run.func is graphs for _, run, _ in enc.parts)
+    assert torch.equal(enc(x), want) and graphs._graph is None
+    graphs._args, graphs._graph, graphs._side = "args", "graphs", "stream"
     twin = copy.deepcopy(enc)
-    assert twin._graphs is None and twin.replay_parts
-    assert enc._graphs == ("key", "parts")
+    twins = twin.parts[0][1].func
+    assert twins is not graphs and twins.model is twin
+    assert twins._graph is None and twins._args is None and twins._warm == 0
+    assert twins._side is None
+    assert twins.parts[0][1].__self__ is twin
+    assert twins.parts[0][2][0] is twin.stem
+    assert (graphs._args, graphs._graph) == ("args", "graphs")
     assert torch.equal(twin(x), want)
+    small = SmallCNNEncoder(bits=8, dim=8)
+    assert not replay_parts(small) and small.parts == ()

@@ -820,13 +820,15 @@ def test_replayed_resnet_parts_equal_eager_steps(dev):
     the same losses, parameters and Adam moments, bit for bit. An input of
     another shape, and an eval-mode forward, run eagerly."""
     from hashgan_tpu_torch.train import hash_step
+    from hashgan_tpu_torch.train.graph_step import replay_parts
     from hashgan_tpu_torch.train.state import create_encoder_state
 
     set_numerics()
     cfg = _config4()
     states = [create_encoder_state(cfg, dev) for _ in range(2)]
     replayed = states[0].module
-    replayed.replay_parts = True
+    assert replay_parts(replayed)
+    graphs = replayed.parts[0][1].func
     g = torch.Generator(device=dev).manual_seed(5)
     for _ in range(5):
         x = torch.randn(96, 64, 64, 3, device=dev, generator=g) * 60.0
@@ -840,15 +842,15 @@ def test_replayed_resnet_parts_equal_eager_steps(dev):
             losses.append(loss.detach())
         assert torch.equal(*losses)
     torch.cuda.synchronize()
-    key = replayed._graphs[0]
-    assert key[0] == (96, 64, 64, 3)
+    captured, args = graphs._graph, graphs._args
+    assert captured is not None and args[0][0].shape == (96, 64, 64, 3)
     _assert_encoder_states_equal(*states)
     x = x[:32]
     assert torch.equal(replayed(x), states[1].module(x))
     replayed.eval()
     with torch.no_grad():
         assert torch.equal(replayed(x), states[1].module.eval()(x))
-    assert replayed._graphs[0] == key
+    assert graphs._graph is captured and graphs._args is args
 
 
 def test_graphed_sampler_equals_eager_sampler(dev):
@@ -876,25 +878,28 @@ def test_graphed_sampler_equals_eager_sampler(dev):
     assert not torch.equal(got[0], got[1])
 
 
-def test_host_feed_replays_equal_the_eager_host_feed(dev, tmp_path):
+def test_host_feed_replays_equal_the_eager_host_feed(dev, tmp_path,
+                                                    monkeypatch):
     """Experiment(config4) on the host feed at mesh 1, small splits: one
     stage-I cycle, then six co-training steps with the ResNet's parts and
-    G's sampler replayed as CUDA graphs, and the same with both eager: the
-    same encoder parameters and Adam moments, bit for bit."""
-    from hashgan_tpu_torch.train.loop import Experiment
+    G's sampler replayed as CUDA graphs, and the same with both eager (an
+    Experiment whose ``replay_parts`` replaces nothing): the same encoder
+    parameters and Adam moments, bit for bit."""
+    from hashgan_tpu_torch.train import loop
 
     cfg = _config4(n_train=512, n_query=32, n_database=64)
-    exps = [Experiment(cfg, workdir=str(tmp_path / n), device=dev)
-            for n in "ab"]
-    assert exps[0]._replay_parts and exps[0].encoder.replay_parts
-    exps[1]._replay_parts = exps[1].encoder.replay_parts = False
+    exps = [loop.Experiment(cfg, workdir=str(tmp_path / "a"), device=dev)]
+    monkeypatch.setattr(loop, "replay_parts", lambda model: False)
+    exps.append(loop.Experiment(cfg, workdir=str(tmp_path / "b"), device=dev))
+    assert exps[0]._graphed_sample is not None
     for exp in exps:
         exp.train_gan(1)
         exp.train_encoder(6, eval_during=False)
     torch.cuda.synchronize()
-    assert exps[0].encoder._graphs is not None
+    assert exps[0].encoder.parts[0][1].func._graph is not None
     assert exps[0]._graphed_sample._graph is not None
-    assert exps[1].encoder._graphs is None and exps[1]._graphed_sample is None
+    assert exps[1].encoder.parts[0][1] == exps[1].encoder._stem
+    assert exps[1]._graphed_sample is None
     _assert_encoder_states_equal(exps[0].encoder_state,
                                  exps[1].encoder_state)
 

@@ -16,6 +16,8 @@ from hashgan_tpu.ops.ref_numpy import hamming_distance_np
 from hashgan_tpu_torch.configs import get_config
 from hashgan_tpu_torch.data.synthetic import make_synthetic
 
+from torch_threads import one_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

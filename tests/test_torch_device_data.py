@@ -58,15 +58,7 @@ from hashgan_tpu_torch.train.hash_step import (
 from hashgan_tpu_torch.train.loop import Experiment
 from hashgan_tpu_torch.train.state import create_encoder_state, create_gan_state
 
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread: these tests run many tiny ops, which torch's
-    thread pool slows down when the test workers share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_thread  # noqa: F401
 
 
 def _indexed_dataset(n, size=8):

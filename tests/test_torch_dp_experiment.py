@@ -28,15 +28,7 @@ from hashgan_tpu_torch.parallel import Mesh
 from hashgan_tpu_torch.train.loop import Experiment
 from test_torch_gan_train import _gan_tensors, _tiny
 
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread: tiny ops slow down when the test workers share
-    the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_thread  # noqa: F401
 
 
 def _cfg(device_data, **train):

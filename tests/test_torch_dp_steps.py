@@ -84,18 +84,10 @@ from test_torch_gan_train import (
     _tiny,
 )
 
+from torch_threads import one_thread  # noqa: F401
+
 GAN_KW = {"ema_decay": 0.9, "d_projection": True, "d_layernorm": True,
           "acgan_fake_scale": 0.5}
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread: tiny ops slow down when the test workers share
-    the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _cpu_mesh(n):

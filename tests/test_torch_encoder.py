@@ -33,6 +33,8 @@ from hashgan_tpu_torch.models.encoders import (
 from hashgan_tpu_torch.ops.pack import pack_codes
 from hashgan_tpu_torch.train.hash_step import encode_dataset, make_encode_fn
 
+from torch_threads import one_thread  # noqa: F401
+
 
 def _flax(bits, dim=8, seed=0):
     enc = FlaxEncoder(bits=bits, dim=dim)

@@ -24,6 +24,8 @@ from hashgan_tpu_torch.eval.map import (
     device_precision_at_radius,
 )
 
+from torch_threads import one_thread  # noqa: F401
+
 TOL = 1e-5
 
 

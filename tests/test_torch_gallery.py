@@ -20,6 +20,8 @@ from hashgan_tpu_torch.ops.groupmin import (
     to_grouped_layout,
 )
 
+from torch_threads import one_thread  # noqa: F401
+
 
 def _packed(n, bits, seed):
     rng = np.random.default_rng(seed)

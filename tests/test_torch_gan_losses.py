@@ -25,6 +25,8 @@ from hashgan_tpu_torch.losses.wgan_gp import (
 from hashgan_tpu_torch.models.convert import discriminator_flax_to_torch
 from hashgan_tpu_torch.models.gan import Discriminator
 
+from torch_threads import one_thread  # noqa: F401
+
 K, B = 4, 6
 
 

@@ -24,6 +24,8 @@ from hashgan_tpu_torch.models.convert import (
 from hashgan_tpu_torch.models.gan import Discriminator, Generator
 from hashgan_tpu_torch.models.layers import CondBatchNorm
 
+from torch_threads import one_thread  # noqa: F401
+
 TOL = 1e-5
 K, DIM, Z = 4, 8, 8
 

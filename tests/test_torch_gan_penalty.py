@@ -32,19 +32,11 @@ from hashgan_tpu_torch.train.gan_step import make_gan_update
 from hashgan_tpu_torch.train.state import create_gan_state
 from hashgan_tpu_torch.utils import profiling
 
+from torch_threads import one_thread  # noqa: F401
+
 aten = torch.ops.aten
 _FED = (aten.convolution_backward, aten.threshold_backward,
         aten.avg_pool2d_backward)
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread: these tests run many tiny ops, which torch's
-    thread pool slows down when the test workers share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 class _ZeroFed(TorchDispatchMode):

@@ -80,6 +80,8 @@ from hashgan_tpu_torch.train.state import (
 )
 from hashgan_tpu_torch.utils.images import save_image_grid
 
+from torch_threads import one_thread  # noqa: F401
+
 K, B, NC, Z = 4, 4, 2, 8
 
 

@@ -61,6 +61,8 @@ from hashgan_tpu_torch.train.hash_step import (
 )
 from hashgan_tpu_torch.train.state import EncoderState, make_encoder_tx
 
+from torch_threads import one_thread  # noqa: F401
+
 TOL = 1e-4
 K = 4
 

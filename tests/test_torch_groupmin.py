@@ -19,6 +19,8 @@ from hashgan_tpu.ops.ref_numpy import hamming_distance_np, pack_codes_np
 from hashgan_tpu_torch.index.gallery import build_gallery_from_packed_device
 from hashgan_tpu_torch.ops import groupmin as port
 
+from torch_threads import one_thread  # noqa: F401
+
 
 def _pm1(rng, n, bits, p=0.5):
     return np.where(rng.uniform(size=(n, bits)) < p, -1.0, 1.0).astype(

@@ -20,6 +20,8 @@ from hashgan_tpu_torch.ops.hamming import (
     hamming_scan_topk,
 )
 
+from torch_threads import one_thread  # noqa: F401
+
 
 def _words(rng, n, w):
     return rng.integers(0, 2**32, size=(n, w), dtype=np.uint32)

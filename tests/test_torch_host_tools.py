@@ -23,6 +23,8 @@ from hashgan_tpu_torch.ops import native, ref_numpy
 from hashgan_tpu_torch.ops._build import BUILD_DIR
 from hashgan_tpu_torch.utils.profiling import trace
 
+from torch_threads import one_thread  # noqa: F401
+
 
 @pytest.mark.parametrize("bits", [32, 48, 64, 128])
 def test_ref_numpy_equals_the_reference(bits):

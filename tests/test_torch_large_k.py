@@ -24,6 +24,8 @@ from hashgan_tpu.ops.ref_numpy import hamming_distance_np, pack_codes_np
 from hashgan_tpu_torch.ops import mxu_large_k as port
 from hashgan_tpu_torch.ops.mxu_scan import fused_rescan_keys, mxu_topk
 
+from torch_threads import one_thread  # noqa: F401
+
 
 def _pm1(rng, n, bits, p=0.5):
     return np.where(rng.uniform(size=(n, bits)) < p, -1.0, 1.0).astype(

@@ -18,6 +18,8 @@ from hashgan_tpu_torch.losses.pairwise import (
     wml_pairwise_loss,
 )
 
+from torch_threads import one_thread  # noqa: F401
+
 TOL = 1e-5
 
 

@@ -17,6 +17,8 @@ from hashgan_tpu_torch.ops.pack import (
     unpack_codes,
 )
 
+from torch_threads import one_thread  # noqa: F401
+
 
 def _codes(n, bits, seed):
     rng = np.random.default_rng(seed)

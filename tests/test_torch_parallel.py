@@ -38,17 +38,9 @@ from hashgan_tpu_torch.parallel import (
 )
 from hashgan_tpu_torch.train.hash_step import encode_dataset, make_encode_fn
 
+from torch_threads import one_thread  # noqa: F401
+
 BITS, N = 64, 70_000
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread: these tests run many tiny ops, which torch's
-    thread pool slows down when the test workers share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _pm1(rng, n, bits, p=0.5):

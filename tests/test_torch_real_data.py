@@ -39,6 +39,8 @@ from hashgan_tpu_torch.utils.checkpoint import (
     write_provenance,
 )
 
+from torch_threads import one_thread  # noqa: F401
+
 _PY = [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]
 
 

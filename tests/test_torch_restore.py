@@ -45,6 +45,8 @@ from hashgan_tpu_torch.models.convert import flax_to_torch
 from hashgan_tpu_torch.train.hash_step import make_encoder_train_step
 from hashgan_tpu_torch.train.loop import Experiment
 
+from torch_threads import one_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LR, ITERS, STEPS = 1e-3, 10, 3
 

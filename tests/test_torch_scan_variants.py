@@ -20,6 +20,8 @@ from hashgan_tpu_torch.ops.groupmin import INT32_MAX
 from hashgan_tpu_torch.ops.scan_variants import fullkey_scan_bf16
 from scripts.bench_scan_variants import fullkey_scan_bf16 as bf16_jax
 
+from torch_threads import one_thread  # noqa: F401
+
 
 def _case(w, n, groups, q, seed, tie_rows=0):
     rng = np.random.default_rng(seed)

@@ -31,6 +31,8 @@ from hashgan_tpu_torch.models.convert import flax_to_torch
 from hashgan_tpu_torch.models.encoders import SmallCNNEncoder
 from hashgan_tpu_torch.ops.pack import pack_codes
 
+from torch_threads import one_thread  # noqa: F401
+
 BITS, N, K = 32, 700, 10
 
 

@@ -26,17 +26,9 @@ from hashgan_tpu_torch.eval.map import (
 from hashgan_tpu_torch.eval.streaming import device_distance_histograms
 from hashgan_tpu_torch.parallel import Mesh
 
+from torch_threads import one_thread  # noqa: F401
+
 TOL = 1e-6
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread: these tests run many tiny ops, which torch's
-    thread pool slows down when the test workers share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _t(a):

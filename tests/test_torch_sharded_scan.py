@@ -27,17 +27,9 @@ from hashgan_tpu_torch.ops.mxu_scan import mxu_topk
 from hashgan_tpu_torch.parallel import Mesh
 from hashgan_tpu_torch.parallel import sharded_scan as port
 
+from torch_threads import one_thread  # noqa: F401
+
 GROUPS, COLS = 8, 16  # the reference tests' lowered layout sizes
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread: these tests run many tiny ops, which torch's
-    thread pool slows down when the test workers share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _pm1(rng, n, bits, p=0.5):

@@ -17,6 +17,8 @@ from hashgan_tpu.ops.slab_scan import mxu_topk_slabbed as slabbed_jax
 from hashgan_tpu_torch.index import gallery as tgal
 from hashgan_tpu_torch.ops import slab_scan as port
 
+from torch_threads import one_thread  # noqa: F401
+
 
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a).view(np.int32))

@@ -29,21 +29,18 @@ from hashgan_tpu_torch.train.loop import Experiment
 from hashgan_tpu_torch.utils import profiling
 from hashgan_tpu_torch.utils.profiling import count, phase, span, trace
 
+from torch_threads import one_thread  # noqa: F401
+
 BITS, N = 32, 700
 SCAN = ("scan.keys", "scan.select", "scan.rescan", "scan.merge")
 
 
 @pytest.fixture(autouse=True)
 def fresh():
-    """An empty recorder, and one intra-op thread: the tests run many tiny
-    ops, which torch's thread pool slows down when test workers share the
-    cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
+    """An empty recorder."""
     profiling.reset()
     yield
     profiling.reset()
-    torch.set_num_threads(threads)
 
 
 def _profiled():

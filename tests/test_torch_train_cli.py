@@ -21,6 +21,8 @@ from hashgan_tpu_torch.ops.pack import pack_codes
 from hashgan_tpu_torch.parallel import Mesh
 from hashgan_tpu_torch.train.loop import Experiment
 
+from torch_threads import one_thread  # noqa: F401
+
 
 TINY_YAML = """
 preset: config1

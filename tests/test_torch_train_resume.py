@@ -31,6 +31,8 @@ from hashgan_tpu_torch.train.hash_step import (
 from hashgan_tpu_torch.train.loop import Experiment
 from hashgan_tpu_torch.utils.checkpoint import CheckpointManager
 
+from torch_threads import one_thread  # noqa: F401
+
 
 def _tiny_cfg(tmp_path, **train):
     cfg = get_config("config1")

@@ -21,6 +21,8 @@ from hashgan_tpu_torch.parallel import Mesh
 from hashgan_tpu_torch.train.loop import Experiment
 from hashgan_tpu_torch.train.state import create_encoder_state
 
+from torch_threads import one_thread  # noqa: F401
+
 
 def _tiny_cfg(tmp_path, **train):
     cfg = get_config("config1")

@@ -47,8 +47,10 @@ from hashgan_tpu_torch.data.preprocess import (
 from hashgan_tpu_torch.data.synthetic import make_synthetic
 from hashgan_tpu_torch.models.convert import flax_to_torch
 from hashgan_tpu_torch.models.encoders import SmallCNNEncoder
-from hashgan_tpu_torch.train.hash_step import encoder_loss_and_grad
+from hashgan_tpu_torch.train.hash_step import encoder_loss
 from hashgan_tpu_torch.train.state import make_encoder_tx
+
+from torch_threads import one_thread  # noqa: F401
 
 TOL = 1e-5
 
@@ -124,18 +126,20 @@ def test_train_steps_match_jax(mult, decay):
         xt = flip_images(to_encoder_input(torch.from_numpy(images)),
                          torch.from_numpy(flip))
         np.testing.assert_array_equal(xt.numpy(), np.asarray(x))
-        loss, metrics = encoder_loss_and_grad(t_enc, xt,
-                                              torch.from_numpy(labels), cfg)
+        loss, metrics = encoder_loss(t_enc, xt, torch.from_numpy(labels),
+                                     cfg)
+        names = [n for n, _ in t_enc.named_parameters()]
+        got_g = dict(zip(names, torch.autograd.grad(
+            loss, list(t_enc.parameters()))))
         np.testing.assert_allclose(loss.item(), float(want_loss), rtol=0,
                                    atol=TOL)
         for name in want_m:
             np.testing.assert_allclose(metrics[name].item(),
                                        float(want_m[name]), rtol=0, atol=TOL)
         want_g = flax_to_torch(jax.device_get(grads))
-        _assert_trees_close({n: p.grad for n, p in t_enc.named_parameters()},
-                            want_g, f"step {step} grad")
+        _assert_trees_close(got_g, want_g, f"step {step} grad")
         for name, p in t_enc.named_parameters():
-            p.grad.copy_(want_g[name])
+            p.grad = torch.empty_like(p).copy_(want_g[name])
         opt.step()
         if sched is not None:
             sched.step()
